@@ -1,0 +1,37 @@
+"""pysurfinv_tpu_torch — the PyTorch + CUDA port of ``pysurfinv_tpu``.
+
+The batched surface-wave dispersion solve of the JAX package, on PyTorch
+tensors, with its three secular-function kernels written by hand in CUDA
+C++ for Hopper (``csrc/``).  Module paths mirror the JAX package so each
+counterpart is easy to find; the JAX package is the reference the port
+is tested against and is never imported here.
+
+The device of a computation is the device of its input tensors: CUDA
+tensors run the kernels, CPU tensors run the kernels' plain PyTorch
+versions (see :mod:`pysurfinv_tpu_torch.ops.secular_lanes`).
+"""
+
+__version__ = "0.1.0"
+
+from pysurfinv_tpu_torch.ops.dispersion import (  # noqa: F401
+    SurfConfig,
+    surf_forward_batch,
+)
+
+
+def __getattr__(name):
+    """Lazy re-exports of the model layer (it pulls in scipy)."""
+    _lazy = {
+        "buildModel1D": "pysurfinv_tpu_torch.models.model1d",
+        "Model1D": "pysurfinv_tpu_torch.models.model1d",
+        "buildSeisLayer": "pysurfinv_tpu_torch.models.layers",
+        "BrownianVar": "pysurfinv_tpu_torch.models.brownian",
+        "BrownianVarMC": "pysurfinv_tpu_torch.models.brownian",
+        "model_batch_from_numpy": "pysurfinv_tpu_torch.convert",
+    }
+    if name in _lazy:
+        import importlib
+
+        return getattr(importlib.import_module(_lazy[name]), name)
+    raise AttributeError(
+        f"module 'pysurfinv_tpu_torch' has no attribute {name!r}")

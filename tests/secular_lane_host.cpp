@@ -1,0 +1,78 @@
+// Host build of the CUDA kernels' per-lane arithmetic
+// (pysurfinv_tpu_torch/csrc/secular_lane.cuh), for tests/test_torch_kernels.py:
+// each entry point runs one kernel's lane body over every (k, b) lane on
+// the CPU, with the CUDA launch functions' signatures minus the stream.
+// The port itself never uses this library.
+
+#include "secular_lane.cuh"
+
+namespace {
+
+sl::Model model(const float* vp, const float* vs, const float* rho,
+                const float* qsi, const float* hf, const float* vf,
+                const float* rf, int B, int L) {
+  return sl::Model{vp, vs, rho, qsi, hf, vf, rf, B, L};
+}
+
+}  // namespace
+
+extern "C" {
+
+void secular_lanes_host(const float* c, const float* t, const float* tm,
+                        const int* mmf, const float* vp, const float* vs,
+                        const float* rho, const float* qsi, const float* hf,
+                        const float* vf, const float* rf, const int* nlay,
+                        float* F, float* bhs, int* mm, int K, int B, int L,
+                        int rayleigh, float fact, float t_base, int atten) {
+  const sl::Model m = model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  for (int k = 0; k < K; ++k) {
+    for (int b = 0; b < B; ++b) {
+      const int i = k * B + b;
+      if (rayleigh) {
+        sl::lane_dynamic<true>(m, b, c[i], t[i], tm[i], mmf[i], nlay[b], fact,
+                               t_base, atten != 0, &F[i], &bhs[i], &mm[i]);
+      } else {
+        sl::lane_dynamic<false>(m, b, c[i], t[i], tm[i], mmf[i], nlay[b],
+                                fact, t_base, atten != 0, &F[i], &bhs[i],
+                                &mm[i]);
+      }
+    }
+  }
+}
+
+void secular_lanes_frozen_host(const float* c, const float* t, const int* mmf,
+                               const float* vp, const float* vs,
+                               const float* rho, const float* qsi,
+                               const float* hf, const float* vf,
+                               const float* rf, float* F, int K, int B, int L,
+                               int rayleigh, float t_base, int atten) {
+  const sl::Model m = model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  for (int i = 0; i < K * B; ++i) {
+    const int b = i % B;
+    F[i] = rayleigh ? sl::lane_frozen<true>(m, b, c[i], t[i], mmf[i], t_base,
+                                            atten != 0)
+                    : sl::lane_frozen<false>(m, b, c[i], t[i], mmf[i],
+                                             t_base, atten != 0);
+  }
+}
+
+void secular_lanes_grad_host(const float* c, const float* t, const int* mmf,
+                             const float* vp, const float* vs,
+                             const float* rho, const float* qsi,
+                             const float* hf, const float* vf, const float* rf,
+                             float* F, float* Fc, float* Ft, int K, int B,
+                             int L, int rayleigh, float t_base, int atten) {
+  const sl::Model m = model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  for (int i = 0; i < K * B; ++i) {
+    const int b = i % B;
+    if (rayleigh) {
+      sl::lane_grad<true>(m, b, c[i], t[i], mmf[i], t_base, atten != 0, &F[i],
+                          &Fc[i], &Ft[i]);
+    } else {
+      sl::lane_grad<false>(m, b, c[i], t[i], mmf[i], t_base, atten != 0,
+                           &F[i], &Fc[i], &Ft[i]);
+    }
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,59 @@
+"""Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Each test hands the same numpy arrays, made from a seed, to the JAX
+package and to the port and compares the outputs.
+"""
+
+import os
+
+import numpy as np
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "test1.npz")
+
+
+def load_eus_model():
+    """The eus_model fixture of tests/conftest.py:65-84 without the
+    conftest (which imports JAX): for tests that also run where JAX is
+    absent, on the GPU machine."""
+    g = np.load(GOLDEN)
+    h, vp, vs = g["model_h"], g["model_vp"], g["model_vs"]
+    rho, qs = g["model_rho"], g["model_qs"]
+    nlay, L = len(h), 72
+
+    def pad(x, fill):
+        return np.concatenate([x, np.full(L - nlay, fill)])
+
+    return {"h": pad(h, 0.0), "vp": pad(vp, vp[-1]), "vs": pad(vs, vs[-1]),
+            "rho": pad(rho, rho[-1]), "qsinv": pad(1.0 / qs, 1.0 / qs[-1]),
+            "nlay": nlay, "periods": g["periods"].astype(float)}
+
+
+def eus_batch(eus_model, B=3, dtype=np.float32, seed=7):
+    """B copies of the eus model, models 1.. with a 1% Vs/Vp jitter —
+    the batch of tests/test_pallas_secular.py:30-43."""
+    m = eus_model
+    rng = np.random.default_rng(seed)
+    mk = lambda x: np.repeat(np.asarray(x, dtype)[None], B, 0)  # noqa: E731
+    h, vp, vs = mk(m["h"]), mk(m["vp"]), mk(m["vs"])
+    rho, qsi = mk(m["rho"]), mk(m["qsinv"])
+    pert = (1.0 + 0.01 * rng.standard_normal(vs.shape)).astype(dtype)
+    vs[1:] *= pert[1:]
+    vp[1:] *= pert[1:]
+    nlay = np.full((B,), m["nlay"], np.int32)
+    return h, vp, vs, rho, qsi, nlay
+
+
+def with_water_top(batch, H=2.0):
+    """Append one model with a water layer (vs = 0) on top of model 0:
+    the liquid regime of the Rayleigh recursion."""
+    h, vp, vs, rho, qsi, nlay = (np.asarray(x) for x in batch)
+    n = int(nlay[0])
+    if n + 1 > h.shape[1]:
+        raise ValueError("no room for a water layer in the padding")
+    shift = lambda x, top: np.concatenate([[top], x[0, :-1]])  # noqa: E731
+    row = [shift(h, H), shift(vp, 1.475), shift(vs, 0.0), shift(rho, 1.027),
+           shift(qsi, 1e-4)]
+    out = [np.concatenate([a, r[None].astype(a.dtype)])
+           for a, r in zip((h, vp, vs, rho, qsi), row)]
+    out.append(np.concatenate([nlay, [n + 1]]).astype(np.int32))
+    return tuple(out)
