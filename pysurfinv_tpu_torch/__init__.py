@@ -1,8 +1,9 @@
 """pysurfinv_tpu_torch — the PyTorch + CUDA port of ``pysurfinv_tpu``.
 
-The batched surface-wave dispersion solve of the JAX package, on PyTorch
-tensors, with its three secular-function kernels written by hand in CUDA
-C++ for Hopper (``csrc/``).  Module paths mirror the JAX package so each
+The batched surface-wave dispersion solve of the JAX package and the
+batched MCMC sampler that drives it, on PyTorch tensors, with the four
+secular-function kernels written by hand in CUDA C++ for Hopper
+(``csrc/``).  Module paths mirror the JAX package so each
 counterpart is easy to find; the JAX package is the reference the port
 is tested against and is never imported here.
 
@@ -20,7 +21,8 @@ from pysurfinv_tpu_torch.ops.dispersion import (  # noqa: F401
 
 
 def __getattr__(name):
-    """Lazy re-exports of the model layer (it pulls in scipy)."""
+    """Lazy re-exports of the model layer and the sampler (they pull in
+    scipy)."""
     _lazy = {
         "buildModel1D": "pysurfinv_tpu_torch.models.model1d",
         "Model1D": "pysurfinv_tpu_torch.models.model1d",
@@ -28,6 +30,10 @@ def __getattr__(name):
         "BrownianVar": "pysurfinv_tpu_torch.models.brownian",
         "BrownianVarMC": "pysurfinv_tpu_torch.models.brownian",
         "model_batch_from_numpy": "pysurfinv_tpu_torch.convert",
+        "CompiledModel": "pysurfinv_tpu_torch.inversion.compiled",
+        "Point": "pysurfinv_tpu_torch.inversion.point",
+        "PointCascadia": "pysurfinv_tpu_torch.inversion.point",
+        "invert_grid": "pysurfinv_tpu_torch.parallel.grid",
     }
     if name in _lazy:
         import importlib

@@ -398,11 +398,11 @@ SL_HD Layer frozen_halfspace(const Model& m, int col, float lnt, bool atten,
 }
 
 // Rayleigh at frozen truncation: layers l < mmf-1 (_ray_secular_tile and
-// _ray_secular_grad_tile, pallas_secular.py:596-655).
+// _ray_secular_grad_tile, pallas_secular.py:596-655), closing with the
+// captured halfspace ``hs``.
 template <class S>
 SL_HD S rayleigh_frozen(const Model& m, int col, const S& c, const S& t,
-                        float lnt, bool atten, int mmf) {
-  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
+                        float lnt, bool atten, int mmf, const Layer& hs) {
   S bv[5] = {S(1.f), S(0.f), S(0.f), S(0.f), S(0.f)};
   for (int l = 0; l < m.L - 1; ++l) {
     if (l < mmf - 1) ray_prop(c, t, bv, layer_at(m, l, col, lnt, atten));
@@ -453,30 +453,124 @@ SL_HD void lane_dynamic(const Model& m, int col, float c, float t, float tm,
   *mm = tr.mm;
 }
 
+// F at the pinned closure layer mmf (>= 2) with the halfspace ``hs``
+// already captured (the refinement evaluates one lane many times).
+template <bool kRayleigh, class S>
+SL_HD S frozen_at(const Model& m, int col, const S& c, const S& t,
+                  float lnt, bool atten, int mmf, const Layer& hs) {
+  if constexpr (kRayleigh) {
+    return rayleigh_frozen(m, col, c, t, lnt, atten, mmf, hs);
+  } else {
+    return love_upward(m, col, c, t, lnt, atten, mmf, hs);
+  }
+}
+
 // secular_lanes_frozen (S = float) and secular_lanes_grad (S = Dual2):
 // F at the pinned closure layer mmf (>= 2), material at the lane's t.
 template <bool kRayleigh, class S>
 SL_HD S lane_frozen(const Model& m, int col, const S& c, const S& t,
                     int mmf, float t_base, bool atten) {
   const float lnt = lnt_of(t_base, val(t), atten);
-  if constexpr (kRayleigh) {
-    return rayleigh_frozen(m, col, c, t, lnt, atten, mmf);
-  } else {
-    const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
-    return love_upward(m, col, c, t, lnt, atten, mmf, hs);
-  }
+  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
+  return frozen_at<kRayleigh>(m, col, c, t, lnt, atten, mmf, hs);
+}
+
+// (F, dF/dc, dF/dT) at c with the halfspace captured.
+template <bool kRayleigh>
+SL_HD Dual2 grad_at(const Model& m, int col, float c, float t, float lnt,
+                    bool atten, int mmf, const Layer& hs) {
+  return frozen_at<kRayleigh>(m, col, Dual2(c, 1.f, 0.f), Dual2(t, 0.f, 1.f),
+                              lnt, atten, mmf, hs);
 }
 
 template <bool kRayleigh>
 SL_HD void lane_grad(const Model& m, int col, float c, float t, int mmf,
                      float t_base, bool atten, float* F, float* Fc,
                      float* Ft) {
-  const Dual2 f = lane_frozen<kRayleigh>(m, col, Dual2(c, 1.f, 0.f),
-                                         Dual2(t, 0.f, 1.f), mmf, t_base,
-                                         atten);
+  const float lnt = lnt_of(t_base, t, atten);
+  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
+  const Dual2 f = grad_at<kRayleigh>(m, col, c, t, lnt, atten, mmf, hs);
   *F = f.v;
   *Fc = f.dc;
   *Ft = f.dt;
+}
+
+// ---------------------------------------------------------------------------
+// refine_lanes: bracket -> root -> group velocity in one pass per lane
+// (_refine_kernel, pallas_secular.py:906-1024)
+// ---------------------------------------------------------------------------
+
+SL_HD float sgn(float x) { return x >= 0.f ? 1.f : -1.f; }
+
+// NaN-propagating max/min: torch.maximum/minimum (and jnp.clip) return
+// NaN when either side is NaN, where fmaxf/fminf would drop it.
+SL_HD float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : (a > b ? a : b);
+}
+SL_HD float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : (a < b ? a : b);
+}
+
+// ``n_ill + 2`` Illinois iterations on [lo, hi] (the first two evaluate
+// the ends), then ``n_newton`` bracket-clamped Newton steps whose last
+// one only evaluates, u = c / (1 - (T/c) F_T/F_c) from that evaluation's
+// tangents.  Every state update is the plain version's select, in its
+// order (refine_lanes_plain in ops/secular_lanes.py).
+template <bool kRayleigh>
+SL_HD void lane_refine(const Model& m, int col, float lo, float hi, float t,
+                       int mmf, float t_base, bool atten, int n_ill,
+                       int n_newton, bool compute_group, float* root,
+                       float* u) {
+  const float lnt = lnt_of(t_base, t, atten);
+  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
+  float flo = 0.f, fhi = 0.f, side = 0.f;
+  for (int j = 0; j < n_ill + 2; ++j) {
+    if (j == 0) {
+      flo = frozen_at<kRayleigh>(m, col, lo, t, lnt, atten, mmf, hs);
+      continue;
+    }
+    if (j == 1) {
+      fhi = frozen_at<kRayleigh>(m, col, hi, t, lnt, atten, mmf, hs);
+      continue;
+    }
+    float denom = fhi - flo;
+    denom = fabsf(denom) > 0.f ? denom : 1.f;
+    const float x_int = (lo * fhi - hi * flo) / denom;
+    const bool bad = !(x_int > lo && x_int < hi);
+    const float x = bad ? 0.5f * (lo + hi) : x_int;
+    const float fx = frozen_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs);
+    const bool same_lo = sgn(fx) == sgn(flo);
+    const float nlo = same_lo ? x : lo;
+    float nflo = same_lo ? fx : flo;
+    const float nhi = same_lo ? hi : x;
+    float nfhi = same_lo ? fhi : fx;
+    if (same_lo && side == -1.f) nfhi = 0.5f * nfhi;
+    if (!same_lo && side == 1.f) nflo = 0.5f * nflo;
+    side = same_lo ? -1.f : 1.f;
+    lo = nlo;
+    hi = nhi;
+    flo = nflo;
+    fhi = nfhi;
+  }
+  float denom = fhi - flo;
+  denom = fabsf(denom) > 0.f ? denom : 1.f;
+  float x = nan_min(nan_max((lo * fhi - hi * flo) / denom, lo), hi);
+  float uu = 0.f;
+  const float slo = sgn(flo);
+  for (int j = 0; j < n_newton; ++j) {
+    const Dual2 g = grad_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs);
+    const bool same_lo = sgn(g.v) == slo;
+    lo = same_lo ? x : lo;
+    hi = same_lo ? hi : x;
+    const float fc_safe = fabsf(g.dc) > 0.f ? g.dc : 1.f;
+    float xn = x - g.v / fc_safe;
+    const bool bad = !(xn > lo && xn < hi);
+    xn = bad ? 0.5f * (lo + hi) : xn;
+    if (compute_group) uu = x / (1.f - (t / x) * (g.dt / fc_safe));
+    x = j < n_newton - 1 ? xn : x;
+  }
+  *root = x;
+  *u = uu;
 }
 
 }  // namespace sl

@@ -8,6 +8,8 @@
 //                            pinned closure layer
 //   secular_grad_kernel   <- secular_lanes_grad   (_rayleigh_grad_kernel,
 //                            _love_grad_kernel): (F, dF/dc, dF/dT)
+//   refine_kernel         <- refine_lanes         (_refine_kernel): Illinois
+//                            + clamped Newton + group velocity in one pass
 //
 // Design.  One thread per (k, b) lane; blocks of 128 threads run along the
 // model axis b, the grid is (ceil(B/128), K).  Each lane is a sequential
@@ -22,10 +24,11 @@
 // arithmetic of the layers a lane does not apply (the TPU kernel computed
 // and discarded them); those steps only renormalise, as on the TPU.  The
 // ragged edge of B is masked, not padded.  The per-lane arithmetic lives
-// in secular_lane.cuh, shared by the three kernels; the gradient kernel
-// runs it on a dual number carrying d/dc and d/dT.  Built without FMA
-// contraction (see NVCC_FLAGS in ops/secular_lanes.py), each kernel is
-// bitwise equal to its plain PyTorch version on the card.
+// in secular_lane.cuh, shared by the four kernels; the gradient kernel
+// and the refinement's Newton tail run it on a dual number carrying d/dc
+// and d/dT.  Built without FMA contraction (see NVCC_FLAGS in
+// ops/secular_lanes.py), each kernel is bitwise equal to its plain
+// PyTorch version on the card.
 //
 // C interface for ctypes: pointers and the stream are void*, each entry
 // point launches on the given stream, does not synchronise and returns
@@ -92,6 +95,28 @@ secular_grad_kernel(Lanes in, sl::Model m, float t_base, bool atten,
   const int i = k * in.B + b;
   sl::lane_grad<kRayleigh>(m, b, in.c[i], in.t[i], in.mmf[i], t_base, atten,
                            &F[i], &Fc[i], &Ft[i]);
+}
+
+// refine_lanes: the whole refinement of one (k, b) lane in one thread —
+// (n_ill + 2) frozen evaluations, then n_newton tangent evaluations, with
+// the halfspace row captured once.  Replaces the separate frozen (Illinois)
+// and gradient launches of the solver's refinement phase: the model column
+// is read from L2 by one launch instead of n_ill + 2 + n_newton.  Bound:
+// FP32/SFU throughput, as the kernels above (the extra state is a dozen
+// registers).
+template <bool kRayleigh>
+__global__ void __launch_bounds__(kBlock)
+refine_kernel(Lanes in, const float* __restrict__ hi, sl::Model m,
+              float t_base, bool atten, int n_ill, int n_newton,
+              bool compute_group, float* __restrict__ root,
+              float* __restrict__ u) {
+  const int b = blockIdx.x * kBlock + threadIdx.x;
+  const int k = blockIdx.y;
+  if (b >= in.B) return;
+  const int i = k * in.B + b;
+  sl::lane_refine<kRayleigh>(m, b, in.c[i], hi[i], in.t[i], in.mmf[i], t_base,
+                             atten, n_ill, n_newton, compute_group, &root[i],
+                             &u[i]);
 }
 
 dim3 grid_of(int K, int B) { return dim3((B + kBlock - 1) / kBlock, K); }
@@ -170,6 +195,32 @@ int secular_lanes_grad_launch(const void* c, const void* t, const void* mmf,
       secular_grad_kernel<false><<<grid_of(K, B), kBlock, 0, s>>>(
           in, m, t_base, atten != 0, static_cast<float*>(F),
           static_cast<float*>(Fc), static_cast<float*>(Ft));
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int refine_lanes_launch(const void* lo, const void* hi, const void* t,
+                        const void* mmf, const void* vp, const void* vs,
+                        const void* rho, const void* qsi, const void* hf,
+                        const void* vf, const void* rf, void* root, void* u,
+                        int K, int B, int L, int rayleigh, float t_base,
+                        int atten, int n_ill, int n_newton, int compute_group,
+                        void* stream) {
+  const Lanes in{static_cast<const float*>(lo), static_cast<const float*>(t),
+                 nullptr, static_cast<const int*>(mmf), K, B};
+  const sl::Model m = make_model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* h = static_cast<const float*>(hi);
+  if (K > 0 && B > 0) {
+    if (rayleigh) {
+      refine_kernel<true><<<grid_of(K, B), kBlock, 0, s>>>(
+          in, h, m, t_base, atten != 0, n_ill, n_newton, compute_group != 0,
+          static_cast<float*>(root), static_cast<float*>(u));
+    } else {
+      refine_kernel<false><<<grid_of(K, B), kBlock, 0, s>>>(
+          in, h, m, t_base, atten != 0, n_ill, n_newton, compute_group != 0,
+          static_cast<float*>(root), static_cast<float*>(u));
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -2,11 +2,22 @@
 
 Capability spec from the reference pySurfInv's ``layers.py``.  Every
 concrete layer type reproduces the reference's parameterization and
-empirical rock-property relations (vp/rho/qs/qp from vs).  This is the
-host mode of the JAX package's layer classes: ``parm`` holds plain
-floats, grids are float64 CPU tensors, fine-layer counts are adaptive
-exactly as in the reference, and the melt-onset merge of the hybrid
-thermal layer uses scipy's CubicSpline.
+empirical rock-property relations (vp/rho/qs/qp from vs).  Two modes, as
+in the JAX package's layer classes:
+
+  * host mode — ``parm`` holds plain floats, grids are float64 CPU
+    tensors, fine-layer counts are adaptive exactly as in the reference,
+    and the melt-onset merge of the hybrid thermal layer uses scipy's
+    CubicSpline;
+  * lane mode (the JAX package's traced mode) — ``seisPropGrids`` gets
+    ``lanes=`` an (N,) reference tensor (its dtype and device are the
+    grids'), a static ``nFine``, ``layersAbove`` as the per-lane last
+    (z, vs, vp, rho, qs, qp) values, each (N,), and ``parm`` values that
+    are (N,) lane tensors or constants.  Every grid comes back (N,
+    nFine + 1); the hybrid layer's merge is a cubic-Hermite bridge (see
+    ``OceanMantleHybrid._merge_lanes``).  This is what
+    ``inversion.compiled.CompiledModel`` builds a whole batch of
+    proposals with.
 """
 
 from __future__ import annotations
@@ -33,6 +44,37 @@ def _linspace01(n):
 
 def _full(n, v):
     return torch.full((n,), v, dtype=_F64)
+
+
+def _col(v, ref):
+    """A parm value in lane mode as an (N, 1) column of ``ref``'s dtype
+    and device: a lane tensor (N,) or a constant."""
+    if torch.is_tensor(v):
+        return v.to(ref).reshape(-1, 1)
+    return torch.full((ref.shape[0], 1), float(v), dtype=ref.dtype,
+                      device=ref.device)
+
+
+def _lin01(n, ref):
+    """linspace(0, 1, n) rounded as numpy (and jnp) round it, (1, n)."""
+    return torch.as_tensor(np.linspace(0.0, 1.0, n), dtype=ref.dtype,
+                           device=ref.device)[None]
+
+
+def _lane_fill(x, v):
+    return torch.full_like(x, v)
+
+
+def _spline_lanes(vals, basis, ref):
+    """sum_i vals[i] * basis[i] per lane: (N, n_z) from coefficients
+    that are lane tensors or constants.  Written as elementwise
+    multiply-adds so a lane's grid does not depend on the batch it is
+    built in (a matrix product's kernel choice can depend on N)."""
+    basis = basis.to(ref)
+    acc = _col(vals[0], ref) * basis[0]
+    for v, b in zip(vals[1:], basis[1:]):
+        acc = acc + _col(v, ref) * b
+    return acc
 
 
 class SeisLayer:
@@ -97,10 +139,26 @@ class SeisLayerVs(SeisLayer):
     """Template: H + Vs parameterization, empirical others (layers.py:109)."""
 
     def seisPropGrids(self, **kwargs):
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            return self._laneGrids(ref, **kwargs)
         N = kwargs.get("nFine") or self._nFineLayers(**kwargs)
         H = float(self._calH(**kwargs))
         z = _linspace01(N + 1) * H
         vs = self._calVs(z, **kwargs)
+        vp, rho, qs, qp = self._calOthers(z, vs, **kwargs)
+        return z, vs, vp, rho, qs, qp
+
+    def _laneGrids(self, ref, **kwargs):
+        """Lane mode: (N, nFine + 1) grids.  ``vs_only`` skips
+        ``_calOthers`` (vp/rho/qs/qp come back as zeros): the priors
+        read only (z, vs), which are computed by the same code as the
+        full build."""
+        z = _lin01(kwargs["nFine"] + 1, ref) * self._calH_lanes(ref, **kwargs)
+        vs = self._calVs(z, **kwargs)
+        if kwargs.get("vs_only"):
+            zero = torch.zeros_like(vs)
+            return z, vs, zero, zero, zero, zero
         vp, rho, qs, qp = self._calOthers(z, vs, **kwargs)
         return z, vs, vp, rho, qs, qp
 
@@ -109,6 +167,13 @@ class SeisLayerVs(SeisLayer):
             z0 = kwargs["layersAbove"][0][-1]
             return self.parm["BottomDepth"] - z0
         return self.parm["H"]
+
+    def _calH_lanes(self, ref, **kwargs):
+        """(N, 1) thickness in lane mode."""
+        if "BottomDepth" in self.parm:
+            z0 = kwargs["layersAbove"][0][:, None]
+            return _col(self.parm["BottomDepth"], ref) - z0
+        return _col(self.parm["H"], ref)
 
     def _nFineLayers(self, **kwargs):  # pragma: no cover - abstract
         raise NotImplementedError
@@ -152,14 +217,20 @@ class Sediment(SeisLayerVs):
 
     def _calVs(self, z, **kwargs):
         v = self.parm["Vs"]
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            if isinstance(v, (list, tuple)):
+                v0, v1 = _col(v[0], ref), _col(v[1], ref)
+                return v0 + (v1 - v0) * _lin01(z.shape[1], ref)
+            return _col(v, ref) * torch.ones_like(z)
         if isinstance(v, (list, tuple)):
             return torch.linspace(float(v[0]), float(v[1]), len(z),
                                   dtype=_F64)
         return _full(len(z), float(v))
 
     def _calOthers(self, z, vs, **kwargs):
-        n = len(z)
-        return vs * 2.0, _brocher_rho(vs), _full(n, 80.0), _full(n, 160.0)
+        return (vs * 2.0, _brocher_rho(vs), _lane_fill(vs, 80.0),
+                _lane_fill(vs, 160.0))
 
 
 class Crust(SeisLayerVs):
@@ -171,19 +242,26 @@ class Crust(SeisLayerVs):
         return self._adaptiveN(float(self._calH(**kwargs)))
 
     def _calVs(self, z, **kwargs):
+        ref = kwargs.get("lanes")
+        gauss = self.parm.get("Gauss", False)
+        if ref is not None:
+            vs = _spline_lanes(self.parm["Vs"], self._bspl(
+                z.shape[1], len(self.parm["Vs"])), ref)
+            if gauss is not False:
+                A, mu, sig = (_col(x, ref) for x in gauss)
+                vs = vs + A * torch.exp(-0.5 * ((z - mu) / sig) ** 2)
+            return vs
         coef = _vec([float(v) for v in self.parm["Vs"]])
         basis = self._bspl(len(z), len(self.parm["Vs"]))
         vs = coef @ basis
-        gauss = self.parm.get("Gauss", False)
         if gauss is not False:
             A, mu, sig = (float(x) for x in gauss)
             vs = vs + A * torch.exp(-0.5 * ((z - mu) / sig) ** 2)
         return vs
 
     def _calOthers(self, z, vs, **kwargs):
-        n = len(z)
-        return (vs * 1.80, _brocher_rho(vs), _full(n, 600.0),
-                _full(n, 1400.0))
+        return (vs * 1.80, _brocher_rho(vs), _lane_fill(vs, 600.0),
+                _lane_fill(vs, 1400.0))
 
 
 class OceanWater(SeisLayerVs):
@@ -193,9 +271,15 @@ class OceanWater(SeisLayerVs):
         self.parm["Vs"] = 0
 
     def seisPropGrids(self, **kwargs):
-        H = float(self._calH(**kwargs))
-        z = _vec([0.0, H])
-        two = torch.ones(2, dtype=_F64)
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            H = self._calH_lanes(ref, **kwargs)
+            z = torch.cat([torch.zeros_like(H), H], dim=1)
+            two = torch.ones_like(z)
+        else:
+            H = float(self._calH(**kwargs))
+            z = _vec([0.0, H])
+            two = torch.ones(2, dtype=_F64)
         return (z, 0.0 * two, 1.475 * two, 1.027 * two,
                 10000.0 * two, 57822.0 * two)
 
@@ -209,12 +293,15 @@ class OceanSediment(SeisLayerVs):
         return 1
 
     def _calVs(self, z, **kwargs):
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            return _col(self.parm["Vs"], ref) * torch.ones_like(z)
         return float(self.parm["Vs"]) * torch.ones(len(z), dtype=_F64)
 
     def _calOthers(self, z, vs, **kwargs):
-        n = len(z)
         vp = vs * 1.23 + 1.28
-        return vp, 0.541 + 0.3601 * vp, _full(n, 80.0), _full(n, 160.0)
+        return (vp, 0.541 + 0.3601 * vp, _lane_fill(vs, 80.0),
+                _lane_fill(vs, 160.0))
 
 
 class OceanCrust(SeisLayerVs):
@@ -227,15 +314,21 @@ class OceanCrust(SeisLayerVs):
 
     def _calVs(self, z, **kwargs):
         v = self.parm["Vs"]
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            if isinstance(v, (list, tuple)):
+                v0, v1 = _col(v[0], ref), _col(v[1], ref)
+                return v0 + (v1 - v0) * _lin01(z.shape[1], ref)
+            return _col(v, ref) * torch.ones_like(z)
         if isinstance(v, (list, tuple)):
             v0, v1 = float(v[0]), float(v[1])
             return v0 + (v1 - v0) * _linspace01(len(z))
         return float(v) * torch.ones(len(z), dtype=_F64)
 
     def _calOthers(self, z, vs, **kwargs):
-        n = len(z)
         vp = vs * 1.8
-        return vp, 0.541 + 0.3601 * vp, _full(n, 350.0), _full(n, 1400.0)
+        return (vp, 0.541 + 0.3601 * vp, _lane_fill(vs, 350.0),
+                _lane_fill(vs, 1400.0))
 
 
 class OceanMantle(SeisLayerVs):
@@ -247,15 +340,19 @@ class OceanMantle(SeisLayerVs):
         return self._adaptiveN(float(self._calH(**kwargs)))
 
     def _calVs(self, z, **kwargs):
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            return _spline_lanes(self.parm["Vs"], self._bspl(
+                z.shape[1], len(self.parm["Vs"]),
+                self.parm.get("deg", None)), ref)
         coef = _vec([float(v) for v in self.parm["Vs"]])
         basis = self._bspl(len(z), len(self.parm["Vs"]),
                            self.parm.get("deg", None))
         return coef @ basis
 
     def _calOthers(self, z, vs, **kwargs):
-        n = len(z)
         return (vs * 1.76, 3.4268 + (vs - 4.5) / 4.5,
-                _full(n, 150.0), _full(n, 1400.0))
+                _lane_fill(vs, 150.0), _lane_fill(vs, 1400.0))
 
 
 class ReferenceMantle(OceanMantle):
@@ -269,6 +366,11 @@ class ReferenceMantle(OceanMantle):
         return 20
 
     def _calVs(self, z, **kwargs):
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            vs0 = kwargs["layersAbove"][1][:, None]
+            return (vs0 + (z[:, -1:] - z[:, :1]) * _col(self.parm["Slope"], ref)
+                    * _lin01(z.shape[1], ref))
         vs0 = float(kwargs["layersAbove"][1][-1])
         return (vs0 + float(z[-1] - z[0]) * float(self.parm["Slope"])
                 * _linspace01(len(z)))
@@ -276,6 +378,9 @@ class ReferenceMantle(OceanMantle):
     def _calOthers(self, z, vs, **kwargs):
         vp, rho, qs, qp = super()._calOthers(z, vs, **kwargs)
         la = kwargs["layersAbove"]
+        if kwargs.get("lanes") is not None:
+            return tuple(a[:, None] + (x - x[:, :1])
+                         for a, x in zip(la[2:6], (vp, rho, qs, qp)))
         vp = float(la[2][-1]) + (vp - vp[0])
         rho = float(la[3][-1]) + (rho - rho[0])
         qs = float(la[4][-1]) + (qs - qs[0])
@@ -292,6 +397,11 @@ class OceanSedimentCascadia(OceanSediment):
                           "Group": "sediment"})
 
     def _calVs(self, z, **kwargs):
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            H = self._calH_lanes(ref, **kwargs)
+            vs = (0.02 * H**2 + 1.27 * H + 0.29 * 0.1) / (H + 0.29)
+            return vs * torch.ones_like(z)
         H = float(self._calH(**kwargs))
         vs = (0.02 * H**2 + 1.27 * H + 0.29 * 0.1) / (H + 0.29)
         return vs * torch.ones(len(z), dtype=_F64)
@@ -326,9 +436,23 @@ class OceanMantleHybrid(OceanMantle):
             return therm.zdeps[-1]
         return therm.zdeps[int(torch.argmax(hot.to(torch.int8)))]
 
+    @staticmethod
+    def _melt_onset_lanes(age, Tp=1325.0):
+        """:meth:`_melt_onset` per lane: ``age`` (N, 1) -> (N,), on the
+        JAX package's 200-node grid (numpy's linspace rounding)."""
+        from pysurfinv_tpu_torch.models.thermal import HSCM, solidus
+        zdeps = torch.as_tensor(np.linspace(0.0, 200.0, 200), dtype=age.dtype,
+                                device=age.device)
+        therm = HSCM(age=age, zdeps=zdeps, Tp=Tp)
+        hot = therm.T > 0.92 * solidus(therm.P, "Ruan2018")
+        first = zdeps[torch.argmax(hot.to(torch.int8), dim=1)]
+        return torch.where(hot.any(dim=1), first, zdeps[-1])
+
     def _calVs(self, z, **kwargs):
         from pysurfinv_tpu_torch.models.thermal import (HSCM, OceanSeisRitz,
                                                         OceanSeisRuan)
+        if kwargs.get("lanes") is not None:
+            return self._calVs_lanes(z, **kwargs)
         layersAbove = kwargs["layersAbove"]
         crustH = kwargs.get("crustH")
         if crustH is None:
@@ -355,6 +479,56 @@ class OceanMantleHybrid(OceanMantle):
         self._debug_zMelt = z_melt
         return self._merge(z, seis.vs, vs_pert, xL, xH)
 
+    def _calVs_lanes(self, z, **kwargs):
+        """Lane mode of :meth:`_calVs`: ``crustH`` (N,) comes from the
+        caller (the compiled model accumulates it), the merge is the
+        Hermite bridge."""
+        from pysurfinv_tpu_torch.models.thermal import (HSCM, OceanSeisRitz,
+                                                        OceanSeisRuan)
+        ref = kwargs["lanes"]
+        crustH = kwargs["crustH"][:, None]
+        Tp = self.parm.get("Tp", 1325)
+        age = torch.clamp(_col(self.parm["ThermAge"], ref), min=1e-3)
+        conv = self.parm.get("Conversion", "Ritzwoller")
+        therm = HSCM(age=age, zdeps=crustH + z, Tp=Tp)
+        if conv == "Yamauchi":
+            seis = OceanSeisRuan(therm, period=1)
+        elif conv == "Ritzwoller":
+            seis = OceanSeisRitz(therm)
+        else:
+            raise ValueError(f"Invalid conversion model: {conv}")
+        z_melt = self._melt_onset_lanes(age, Tp=Tp)[:, None] - crustH
+        basis = self._bspl(z.shape[1], len(self.parm["Vs"]) + 1)
+        vs_pert = _spline_lanes([0.0] + list(self.parm["Vs"]), basis,
+                                ref) + seis.vs
+        xH = (z_melt + crustH) * 1.7 - crustH
+        return self._merge_lanes(z, seis.vs, vs_pert, z_melt, xH)
+
+    @staticmethod
+    def _merge_lanes(z, y1, y2, xL, xH):
+        """Lane-mode bridge (the JAX package's traced ``_merge``): a
+        cubic Hermite between the last kept points of y1 and y2 with
+        finite-difference end slopes, which agrees with the reference's
+        global CubicSpline to within the fine-grid discretization.
+        z, y1, y2 (N, n); xL, xH (N, 1)."""
+        n = z.shape[1]
+        dz = z[:, 1:2] - z[:, :1]
+        iL = ((z < xL).sum(1, keepdim=True) - 1).clamp(1, n - 2)
+        iH = (n - (z > xH).sum(1, keepdim=True)).clamp(1, n - 2)
+        at = lambda a, i: a.gather(1, i)  # noqa: E731
+        zL, zH = at(z, iL), at(z, iH)
+        yL, yH = at(y1, iL), at(y2, iH)
+        sL = (yL - at(y1, iL - 1)) / dz
+        sH = (at(y2, iH + 1) - yH) / dz
+        span = torch.maximum(zH - zL, dz)
+        s = torch.clamp((z - zL) / span, 0.0, 1.0)
+        h00 = 2 * s**3 - 3 * s**2 + 1
+        h10 = s**3 - 2 * s**2 + s
+        h01 = -2 * s**3 + 3 * s**2
+        h11 = s**3 - s**2
+        bridge = h00 * yL + h10 * span * sL + h01 * yH + h11 * span * sH
+        return torch.where(z < zL, y1, torch.where(z > zH, y2, bridge))
+
     @staticmethod
     def _merge(z, y1, y2, xL, xH):
         """Smooth bridge: y1 for z < xL, y2 for z > xH, through scipy's
@@ -372,10 +546,15 @@ class OceanMantleHybrid(OceanMantle):
         layersAbove = kwargs["layersAbove"]
         Qage = (modelInfo.get("lithoAge", None)
                 if modelInfo.get("lithoAgeQ", False) else None)
-        z0 = float(layersAbove[0][-1])
         period = modelInfo.get("period", 1)
         Qage = self.parm["ThermAge"] if Qage is None else Qage
-        age = torch.clamp(_vec(float(Qage)), min=1e-3)
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            z0 = layersAbove[0][:, None]
+            age = torch.clamp(_col(Qage, ref), min=1e-3)
+        else:
+            z0 = float(layersAbove[0][-1])
+            age = torch.clamp(_vec(float(Qage)), min=1e-3)
         seis = OceanSeisRuan(HSCM(age=age, zdeps=z0 + z), period=period)
         vp, rho, qs, qp = super()._calOthers(z, vs, **kwargs)
         qs = torch.clamp(seis.qs, max=5000.0)

@@ -8,7 +8,7 @@ injection.
 
 Not ported yet (see ROADMAP.md): the single-model forward call
 (``Model1D.forward``/``calForward``, which wait for the single-model
-solver) and ``CascadiaOcean.isgood`` (which waits for the prior checks).
+solver).
 """
 
 from __future__ import annotations
@@ -295,10 +295,34 @@ class CascadiaOcean(MCinv):
         return localDict
 
     def isgood(self, verbose=False):
-        raise NotImplementedError(
-            "CascadiaOcean.isgood needs the prior checks of "
-            "inversion/priors.py, not ported yet (ROADMAP.md Queue 1 "
-            "item 9)")
+        z, vs, *_, grp = self.seisPropGrids(refLayer=False)
+        grp = np.array(grp)
+        vsS, vsC, vsM = vs[grp == "sediment"], vs[grp == "crust"], \
+            vs[grp == "mantle"]
+        zM = z[grp == "mantle"]
+
+        if np.any(vsS < 0.2):                       # sediment Vs > 0.2
+            return False
+        for i in np.where(grp[1:] != grp[:-1])[0]:  # positive group jumps
+            if vs[i + 1] < vs[i]:
+                return False
+        if not monoNonDecrease(vsS) or not monoNonDecrease(vsC):
+            return False
+        if (vs[-1] - vs[-2]) / (z[-1] - z[-2]) <= 0:  # increase at bottom
+            return False
+
+        # oscillation limit between adjacent local extrema (models.py:600)
+        from pysurfinv_tpu_torch.inversion.priors import (
+            _argrel, cwt_oscillation, local_extrema_oscillation)
+        if not local_extrema_oscillation(vsM, 0.1 * vsM.mean()):
+            return False
+        # hybrid parameterization constraints (models.py:611-634)
+        if _argrel(vsM, np.greater).size > 0:  # no local mantle maximum
+            return False
+        slope = np.diff(vsM) / np.diff(zM)
+        if slope.min() < slope[0] * 1.5:
+            return False
+        return bool(cwt_oscillation(vsM, zM, limit=0.3))
 
 
 class CascadiaPrism(MCinv):

@@ -16,7 +16,9 @@ which replaces the reference's sequential bracket + Neville refinement
   2. **Refine:** Illinois (regula falsi) over all (period, mode, model)
      lanes at once, with the halfspace truncation frozen at each
      bracket's upper end (the NEVILL convention, calcul.f:156-172) — or
-     ``newton_sep`` separated safeguarded-Newton steps.
+     ``newton_sep`` separated safeguarded-Newton steps, or (``nnewton``,
+     ``fuse_illinois``) the whole refinement in one ``refine_lanes``
+     launch.
   3. **Group velocity:** u = c / (1 - (T/c) F_T/F_c) from forward-mode
      tangents of the secular function at the root, with the attenuated
      + flattened model held fixed (the reference's variational
@@ -38,7 +40,8 @@ import torch
 
 from pysurfinv_tpu_torch.ops.flatten import H_MIN, model_preamble
 from pysurfinv_tpu_torch.ops.secular_lanes import (
-    RAYLEIGH_NAMES, secular_lanes, secular_lanes_frozen, secular_lanes_grad)
+    RAYLEIGH_NAMES, refine_lanes, secular_lanes, secular_lanes_frozen,
+    secular_lanes_grad)
 
 
 @dataclass(frozen=True)
@@ -54,7 +57,7 @@ class SurfConfig:
     nscan_first: int = 512    # c-grid coverage (in dc), first period
     nscan: int = 64           # c-grid coverage (in dc), warm-started periods
     nbisect: int = 12         # Illinois refinement iterations
-    nnewton: int = 0          # >0 = fused refine_lanes kernel (not ported)
+    nnewton: int = 0          # >0 = fused refine_lanes kernel
     coarse: int = 2           # warm-period sweep step, in dc
     coarse_first: int = 4     # cold-period (first-period) sweep step, in dc
     warm_backoff: int = 10    # warm start = previous bracket lo minus this
@@ -69,7 +72,7 @@ class SurfConfig:
     #                           plain versions for CPU tensors;
     #                           "plain": plain versions on any device;
     #                           "kernel": CUDA kernels, raise on CPU
-    fuse_illinois: bool = False  # one refine_lanes launch (not ported)
+    fuse_illinois: bool = False  # one refine_lanes launch
     fhandoff: bool = False    # seed the refinement with the bracket
     #                           sweep's endpoint secular values
     wseed_nscan: int = 0      # fused c_warm sweep span (in dc); 0 = nscan
@@ -156,13 +159,6 @@ def _mode_chain(ok, dim):
     return ok & torch.cat([first, prev], dim=dim)
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"SurfConfig.{what} routes the refinement through the fused "
-        "refine_lanes kernel, which is not ported yet (ROADMAP.md Queue 2 "
-        "item 4)")
-
-
 def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
                        wave: str = "rayleigh", cfg: SurfConfig = SurfConfig(),
                        c_warm=None):
@@ -185,10 +181,6 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
     Returns (c, u, ok), each (B, P, nmodes); c and u are 0 where ok is
     False.
     """
-    if cfg.nnewton >= 1:
-        raise _not_ported("nnewton")
-    if cfg.fuse_illinois:
-        raise _not_ported("fuse_illinois")
     backend = cfg.backend
     B = h.shape[0]
     dtype, device = h.dtype, h.device
@@ -408,6 +400,13 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
                           w_l)
     hi_l = (lo_l + w_l).expand(lo_l.shape)
 
+    def refine(n_newton, compute_group):
+        return refine_lanes(lo_l.contiguous(), hi_l.contiguous(), t_l, mm_l,
+                            *model_T, nlay, wave=wave, t_base=cfg.t_base,
+                            atten=cfg.atten, n_ill=cfg.nbisect,
+                            n_newton=n_newton, compute_group=compute_group,
+                            backend=backend)
+
     if cfg.newton_sep >= 1:
         # separated safeguarded Newton from the bracket midpoint: each
         # step clamped to the live bracket (midpoint fallback), the last
@@ -439,9 +438,19 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
                                                  cur_lo), cur_hi)
         else:
             u_l = torch.zeros_like(root_l)
+    elif cfg.nnewton >= 1:
+        # fused refine: all Illinois iterations + Newton tail + group
+        # tangents in ONE kernel launch
+        root_l, u_l = refine(cfg.nnewton, cfg.compute_group)
     else:
-        root_l = illinois_lanes(t_l, lo_l.contiguous(), hi_l.contiguous(),
-                                mm_l, cfg.nbisect, f_lo=flo_l, f_hi=fhi_l)
+        if cfg.fuse_illinois:
+            # all Illinois iterations in ONE launch (same algorithm as
+            # illinois_lanes, without the endpoint handoff)
+            root_l, _ = refine(0, False)
+        else:
+            root_l = illinois_lanes(t_l, lo_l.contiguous(),
+                                    hi_l.contiguous(), mm_l, cfg.nbisect,
+                                    f_lo=flo_l, f_hi=fhi_l)
         if cfg.compute_group:
             # u = c / (1 - (T/c) F_T/F_c) from the kernel's forward-mode
             # tangents; the same launch's (F, F_c) give one clamped

@@ -1,8 +1,8 @@
-"""Secular functions on a (K, B) lane grid: the solver's three kernels.
+"""Secular functions on a (K, B) lane grid: the solver's four kernels.
 
 Counterpart of the JAX package's ``ops/pallas_secular.py``.  Each of its
-TPU kernels on the batched solve's path is a CUDA C++ kernel here
-(``csrc/secular_lanes.cu``, per-lane arithmetic in ``csrc/secular_lane.cuh``):
+TPU kernels is a CUDA C++ kernel here (``csrc/secular_lanes.cu``,
+per-lane arithmetic in ``csrc/secular_lane.cuh``):
 
   ==========================  =============================================
   wrapper                     replaces (pysurfinv_tpu/ops/pallas_secular.py)
@@ -14,9 +14,12 @@ TPU kernels on the batched solve's path is a CUDA C++ kernel here
                               F at a pinned closure layer
   ``secular_lanes_grad``      ``secular_lanes_grad`` (``_rayleigh_grad_kernel``,
                               ``_love_grad_kernel``): (F, dF/dc, dF/dT)
+  ``refine_lanes``            ``refine_lanes`` (``_refine_kernel``):
+                              Illinois + clamped Newton + group velocity,
+                              one launch per refinement
   ==========================  =============================================
 
-Lane contract (shared by all three): lanes are (K, B) — K trial c or
+Lane contract (shared by all four): lanes are (K, B) — K trial c or
 period rows, B models; the model arrays are transposed to (L, B): vp,
 vs, rho, qsi (= 1/Qs), h_flat, vel_fac, rho_fac; ``nlay`` is (B,) int32;
 ``mm_frozen`` is (K, B) int32 with 0 = dynamic truncation and >= 1 the
@@ -381,11 +384,26 @@ def secular_lanes_grad_plain(c, t, mm_frozen, vp, vs, rho, qsi, h_flat,
 
     Transcribes ``_rayleigh_grad_kernel``/``_love_grad_kernel``
     (pallas_secular.py:616-775): forward-mode tangents in c and T through
-    each layer update (``torch.func.jvp``), with the attenuated material
-    held at ``t`` (the tangent in T runs through the wavenumbers only)
-    and the renormalisation factor taken from the primal values.
+    each layer update (dual tensors of ``torch.autograd.forward_ad``;
+    the same derivative formulas as ``torch.func.jvp`` at a third of its
+    dispatch cost), with the attenuated material held at ``t`` (the
+    tangent in T runs through the wavenumbers only) and the
+    renormalisation factor taken from the primal values.
     """
-    from torch.func import jvp
+    import torch.autograd.forward_ad as fwAD
+
+    def jvp(fn, primals, tangents):
+        with fwAD.dual_level():
+            out = fn(*(fwAD.make_dual(p, d)
+                       for p, d in zip(primals, tangents)))
+            out = [fwAD.unpack_dual(o) for o in
+                   (out if isinstance(out, tuple) else (out,))]
+            prim = tuple(o.primal for o in out)
+            tang = tuple(torch.zeros_like(o.primal) if o.tangent is None
+                         else o.tangent for o in out)
+        if len(out) == 1:
+            return prim[0], tang[0]
+        return prim, tang
 
     rayleigh = _is_rayleigh(wave)
     model = (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)
@@ -438,6 +456,70 @@ def secular_lanes_grad_plain(c, t, mm_frozen, vp, vs, rho, qsi, h_flat,
         new = sel(apply, new, (ut, tt)) + sel(apply, dnew, (dut, dtt))
         ut, tt, dut, dtt = _renorm(new, scale_of=new[:2])
     return -tt[0], -dtt[0], -dtt[1]
+
+
+def _sgn(x):
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+def refine_lanes_plain(lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat,
+                       vel_fac, rho_fac, nlay, wave="rayleigh", t_base=1.0,
+                       atten=True, n_ill=6, n_newton=2, compute_group=True):
+    """Brackets -> roots (and group velocities), any float dtype.
+
+    Transcribes ``_refine_kernel`` (pallas_secular.py:906-1024): ``n_ill
+    + 2`` Illinois iterations, the first two evaluating the ends, then
+    ``n_newton`` bracket-clamped Newton steps, the last of which only
+    evaluates; its tangents give u = c / (1 - (T/c) F_T/F_c).  The
+    evaluations are :func:`secular_lanes_frozen_plain` and
+    :func:`secular_lanes_grad_plain`; the state updates are the TPU
+    kernel's selects, in its order.  Returns ``(root, u)``; ``u`` is
+    zeros when ``compute_group`` is False or ``n_newton`` is 0.
+    """
+    model = (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)
+    kw = dict(wave=wave, t_base=t_base, atten=atten)
+    F_of = lambda x: secular_lanes_frozen_plain(  # noqa: E731
+        x, t, mm_frozen, *model, nlay, **kw)
+    zero = torch.zeros_like(lo)
+    flo = F_of(lo)
+    fhi = F_of(hi)
+    side = zero
+    for _ in range(n_ill):
+        denom = fhi - flo
+        denom = torch.where(denom.abs() > 0, denom, 1.0)
+        x_int = (lo * fhi - hi * flo) / denom
+        bad = ~((x_int > lo) & (x_int < hi))
+        x = torch.where(bad, 0.5 * (lo + hi), x_int)
+        fx = F_of(x)
+        same_lo = _sgn(fx) == _sgn(flo)
+        nlo = torch.where(same_lo, x, lo)
+        nflo = torch.where(same_lo, fx, flo)
+        nhi = torch.where(same_lo, hi, x)
+        nfhi = torch.where(same_lo, fhi, fx)
+        nfhi = torch.where(same_lo & (side == -1), 0.5 * nfhi, nfhi)
+        nflo = torch.where(~same_lo & (side == 1), 0.5 * nflo, nflo)
+        side = torch.where(same_lo, -1.0, 1.0).to(lo.dtype)
+        lo, hi, flo, fhi = nlo, nhi, nflo, nfhi
+    denom = fhi - flo
+    denom = torch.where(denom.abs() > 0, denom, 1.0)
+    x = torch.minimum(torch.maximum((lo * fhi - hi * flo) / denom, lo), hi)
+    u = zero
+    slo = _sgn(flo)
+    for j in range(n_newton):
+        F, Fc, Ft = secular_lanes_grad_plain(x, t, mm_frozen, *model, nlay,
+                                             **kw)
+        same_lo = _sgn(F) == slo
+        lo = torch.where(same_lo, x, lo)
+        hi = torch.where(same_lo, hi, x)
+        fc_safe = torch.where(Fc.abs() > 0, Fc, 1.0)
+        xn = x - F / fc_safe
+        bad = ~((xn > lo) & (xn < hi))
+        xn = torch.where(bad, 0.5 * (lo + hi), xn)
+        if compute_group:
+            u = x / (1.0 - (t / x) * (Ft / fc_safe))
+        if j < n_newton - 1:
+            x = xn
+    return x, u
 
 
 # ---------------------------------------------------------------------------
@@ -513,8 +595,10 @@ def kernel_library():
         [P, P, P] + model + [P, I, I, I, I, F, I, P])
     lib.secular_lanes_grad_launch.argtypes = (
         [P, P, P] + model + [P, P, P, I, I, I, I, F, I, P])
+    lib.refine_lanes_launch.argtypes = (
+        [P, P, P, P] + model + [P, P, I, I, I, I, F, I, I, I, I, P])
     for fn in (lib.secular_lanes_launch, lib.secular_lanes_frozen_launch,
-               lib.secular_lanes_grad_launch):
+               lib.secular_lanes_grad_launch, lib.refine_lanes_launch):
         fn.restype = ctypes.c_int
     info = {"seconds": seconds, "path": str(so),
             "log": log.read_text() if log.exists() else ""}
@@ -679,10 +763,47 @@ def secular_lanes_grad(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
     return F, Fc, Ft
 
 
+def refine_lanes(lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
+                 rho_fac, nlay, wave="rayleigh", t_base=1.0, atten=True,
+                 n_ill=6, n_newton=2, compute_group=True, backend="auto"):
+    """Refine (K, B) brackets to roots + group velocities, one launch.
+
+    Args mirror :func:`secular_lanes_frozen`; ``lo``/``hi`` bound each
+    lane's root (a sign change inside is the caller's contract — lanes
+    without one converge somewhere inside and are masked by the caller's
+    ``ok``).  Returns ``(root, u)``; ``u`` is zeros when
+    ``compute_group`` is False or ``n_newton`` is 0.
+    """
+    args = (lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac, rho_fac,
+            nlay)
+    kw = dict(wave=wave, t_base=t_base, atten=atten, n_ill=n_ill,
+              n_newton=n_newton, compute_group=compute_group)
+    if not _resolve("refine_lanes", backend, lo):
+        return refine_lanes_plain(*args, **kw)
+    if n_ill < 0 or n_newton < 0:
+        raise ValueError("refine_lanes: n_ill and n_newton must be >= 0")
+    model = (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)
+    K, B, L = _check_lanes("refine_lanes", lo, (lo, hi, t), model, nlay)
+    _check_mm("refine_lanes", mm_frozen, lo)
+    lib, _ = kernel_library()
+    root = torch.empty_like(lo)
+    u = torch.empty_like(lo)
+    err = lib.refine_lanes_launch(
+        *_ptrs(lo, hi, t, mm_frozen, *model, root, u), K, B, L,
+        int(_is_rayleigh(wave)), float(t_base), int(atten), int(n_ill),
+        int(n_newton), int(compute_group),
+        torch.cuda.current_stream(lo.device).cuda_stream)
+    _launched("refine_lanes", err)
+    refine_lanes.launches += 1
+    return root, u
+
+
 secular_lanes.launches = 0
 secular_lanes_frozen.launches = 0
 secular_lanes_grad.launches = 0
-KERNELS = (secular_lanes, secular_lanes_frozen, secular_lanes_grad)
+refine_lanes.launches = 0
+KERNELS = (secular_lanes, secular_lanes_frozen, secular_lanes_grad,
+           refine_lanes)
 
 
 def reset_launch_counts():

@@ -1,4 +1,5 @@
-"""Shared utilities: recursive dict transforms and profile plotting.
+"""Shared utilities: recursive dict transforms, npz writing and profile
+plotting.
 
 Capability spec from the reference pySurfInv's ``utils.py:9-53``.  matplotlib is
 imported only inside the plotting helpers.
@@ -7,6 +8,21 @@ imported only inside the plotting helpers.
 from __future__ import annotations
 
 import numpy as np
+
+
+def savez_fast(path, compresslevel=1, **arrays):
+    """``np.savez_compressed`` at a chosen deflate level (numpy pins the
+    zlib default, level 6).  MCMC chain files are dominated by repeated
+    rejected-step rows, which level-1 deflate already collapses.
+    ``np.load`` reads the result identically."""
+    import zipfile
+    from numpy.lib import format as npformat
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=compresslevel) as zf:
+        for name, val in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as fh:
+                npformat.write_array(fh, np.asarray(val),
+                                     allow_pickle=True)
 
 
 def _dictIterModifier(d, checker, modifier):

@@ -75,4 +75,25 @@ void secular_lanes_grad_host(const float* c, const float* t, const int* mmf,
   }
 }
 
+void refine_lanes_host(const float* lo, const float* hi, const float* t,
+                       const int* mmf, const float* vp, const float* vs,
+                       const float* rho, const float* qsi, const float* hf,
+                       const float* vf, const float* rf, float* root, float* u,
+                       int K, int B, int L, int rayleigh, float t_base,
+                       int atten, int n_ill, int n_newton, int compute_group) {
+  const sl::Model m = model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  for (int i = 0; i < K * B; ++i) {
+    const int b = i % B;
+    if (rayleigh) {
+      sl::lane_refine<true>(m, b, lo[i], hi[i], t[i], mmf[i], t_base,
+                            atten != 0, n_ill, n_newton, compute_group != 0,
+                            &root[i], &u[i]);
+    } else {
+      sl::lane_refine<false>(m, b, lo[i], hi[i], t[i], mmf[i], t_base,
+                             atten != 0, n_ill, n_newton, compute_group != 0,
+                             &root[i], &u[i]);
+    }
+  }
+}
+
 }  // extern "C"

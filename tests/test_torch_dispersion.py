@@ -34,7 +34,8 @@ def solve_both(batch, periods, wave, c_warm=None, **kw):
         jnp.asarray(nlay), wave=wave,
         cfg=JaxConfig(backend="pallas_interpret", **kw),
         c_warm=None if c_warm is None else jnp.asarray(c_warm))
-    *model, nl = model_batch_from_numpy(h, vp, vs, rho, qsi, nlay)
+    *model, nl = model_batch_from_numpy(h, vp, vs, rho, qsi, nlay,
+                                         device="cpu")
     ct, ut, okt = surf_forward_batch(
         *model, torch.tensor(periods), nl, wave=wave, cfg=SurfConfig(**kw),
         c_warm=None if c_warm is None else torch.tensor(c_warm))

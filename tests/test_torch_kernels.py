@@ -5,7 +5,7 @@ host, and (on a machine with an NVIDIA GPU) the kernels themselves.
   and the launch counters move only where a kernel launches.
 * The kernels' per-lane code (``csrc/secular_lane.cuh``) compiled with g++
   agrees with the plain versions at the kernel contract's tolerances
-  (skips without g++).
+  (skips without g++), refine_lanes' Illinois + Newton body included.
 * ``cuda``-marked tests run the CUDA kernels against the plain versions on
   the card; they skip without one.
 
@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import eus_batch, load_eus_model, with_water_top
+from torch_helpers import (eus_batch, load_eus_model, root_brackets,
+                           with_water_top)
 
 from pysurfinv_tpu_torch.ops import secular_lanes as tsl
 from pysurfinv_tpu_torch.ops.dispersion import SurfConfig, surf_forward_batch
@@ -83,21 +84,14 @@ def test_cpu_tensors_take_the_plain_versions(lanes):
     assert torch.equal(F, Fp)
     tsl.secular_lanes_frozen(c, t, mm, *model, nlay)
     tsl.secular_lanes_grad(c, t, mm, *model, nlay)
-    assert [k.launches for k in tsl.KERNELS] == [0, 0, 0]
+    tsl.refine_lanes(c, c + 0.1, t, mm, *model, nlay, n_ill=1, n_newton=1)
+    assert [k.launches for k in tsl.KERNELS] == [0, 0, 0, 0]
     for fn, mmf in ((tsl.secular_lanes, mm0), (tsl.secular_lanes_frozen, mm),
                     (tsl.secular_lanes_grad, mm)):
         with pytest.raises(ValueError, match="CUDA"):
             fn(c, t, mmf, *model, nlay, backend="kernel")
-
-
-@pytest.mark.parametrize("option", ["nnewton", "fuse_illinois"])
-def test_refine_lanes_options_are_not_ported(eus, option):
-    batch = eus_batch(eus, B=1)
-    cfg = SurfConfig(**{option: 2 if option == "nnewton" else True})
-    with pytest.raises(NotImplementedError, match="refine_lanes"):
-        surf_forward_batch(*map(torch.tensor, batch[:5]),
-                           torch.tensor(PERIODS[:2]), torch.tensor(batch[5]),
-                           cfg=cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsl.refine_lanes(c, c + 0.1, t, mm, *model, nlay, backend="kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +114,7 @@ def host_lib(tmp_path_factory):
     lib.secular_lanes_host.argtypes = [P] * 15 + [I, I, I, I, F, F, I]
     lib.secular_lanes_frozen_host.argtypes = [P] * 11 + [I, I, I, I, F, I]
     lib.secular_lanes_grad_host.argtypes = [P] * 13 + [I, I, I, I, F, I]
+    lib.refine_lanes_host.argtypes = [P] * 13 + [I, I, I, I, F, I, I, I, I]
     return lib
 
 
@@ -168,6 +163,33 @@ def test_kernel_lane_code_on_host_matches_plain(host_lib, lanes, wave):
     _assert_ratio(Gk, Gp)
 
 
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("n_newton", [0, 2])
+def test_refine_lane_code_on_host_matches_plain(host_lib, lanes, wave,
+                                                n_newton):
+    """The refine kernel's lane body (Illinois + Newton + u) against
+    refine_lanes_plain on brackets around each lane's root.  The host
+    build's libm (expf, sinf) rounds differently from PyTorch's CPU
+    kernels, and F at a root is float32 noise, so a lane may settle on
+    another point of its noise band: roots within 1e-4 km/s (the card
+    contract's bound), u within 1e-3 relative at q99."""
+    c, t, model, nlay = lanes[wave]
+    lo, hi, mm = root_brackets(c, t, model, nlay, wave)
+    K, B = lo.shape
+    root, u = torch.empty_like(lo), torch.empty_like(lo)
+    p = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
+    host_lib.refine_lanes_host(*p(lo, hi, t, mm, *model, root, u), K, B,
+                               model[0].shape[0], int(wave == "rayleigh"),
+                               1.0, 1, 6, n_newton, 1)
+    rp, up = tsl.refine_lanes_plain(lo, hi, t, mm, *model, nlay, wave=wave,
+                                    n_ill=6, n_newton=n_newton)
+    assert float((root - rp).abs().max()) <= 1e-4
+    if n_newton:
+        rel = ((u - up).abs() / up.abs()).double()
+        assert float(torch.quantile(rel, 0.99)) <= 1e-3
+    assert (n_newton == 0) == bool((up == 0).all())
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels (need a card)
 # ---------------------------------------------------------------------------
@@ -203,7 +225,16 @@ def test_cuda_kernels_match_plain(cuda_device, lanes, wave):
     torch.cuda.synchronize()
     _assert_F(Gk[0], Gp[0])
     _assert_ratio(Gk, Gp)
-    assert [k.launches for k in tsl.KERNELS] == [1, 1, 1]
+    lo, hi, mm = root_brackets(*(x.cpu() if torch.is_tensor(x)
+                                 else [m.cpu() for m in x]
+                                 for x in lanes[wave]), wave)
+    lo, hi, mm = lo.to(cuda_device), hi.to(cuda_device), mm.to(cuda_device)
+    Rk = tsl.refine_lanes(lo, hi, t, mm, *model, nlay, wave=wave)
+    Rp = tsl.refine_lanes(lo, hi, t, mm, *model, nlay, wave=wave,
+                          backend="plain")
+    torch.cuda.synchronize()
+    assert torch.equal(Rk[0], Rp[0]) and torch.equal(Rk[1], Rp[1])
+    assert [k.launches for k in tsl.KERNELS] == [1, 1, 1, 1]
     with pytest.raises(TypeError, match="float32"):
         tsl.secular_lanes(c.double(), t.double(), mm0,
                           *[m.double() for m in model], nlay)

@@ -8,6 +8,7 @@
 * ``import pysurfinv_tpu_torch`` loads no JAX module.
 """
 
+import os
 import subprocess
 import sys
 
@@ -73,21 +74,34 @@ def test_seis_prop_layers_match_jax_f64(setting):
 def test_model_batch_from_numpy():
     rng = np.random.default_rng(0)
     arrs = [rng.random((3, 8)) for _ in range(5)]
-    out = model_batch_from_numpy(*arrs, 6)
+    out = model_batch_from_numpy(*arrs, 6, device="cpu")
     assert all(x.dtype == torch.float32 and x.shape == (3, 8)
                for x in out[:5])
     assert out[5].dtype == torch.int32 and out[5].tolist() == [6, 6, 6]
     np.testing.assert_array_equal(out[2].numpy(), arrs[2].astype(np.float32))
     with pytest.raises(ValueError):
-        model_batch_from_numpy(*arrs, 9)
+        model_batch_from_numpy(*arrs, 9, device="cpu")
+
+
+PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
+                "pysurfinv_tpu_torch.models.model1d",
+                "pysurfinv_tpu_torch.inversion.random",
+                "pysurfinv_tpu_torch.inversion.priors",
+                "pysurfinv_tpu_torch.inversion.compiled",
+                "pysurfinv_tpu_torch.inversion.mcmc",
+                "pysurfinv_tpu_torch.inversion.point",
+                "pysurfinv_tpu_torch.parallel.grid")
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, pysurfinv_tpu_torch, pysurfinv_tpu_torch.convert, "
-            "pysurfinv_tpu_torch.models.model1d; "
+    """The port's modules (and chip_smoke.py, which runs where JAX is
+    absent) import neither JAX nor the JAX package."""
+    code = ("import sys, runpy, " + ", ".join(PORT_MODULES) + "; "
+            "runpy.run_path('chip_smoke.py', run_name='chip_smoke'); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'pysurfinv_tpu.')) "
             "or m == 'pysurfinv_tpu'); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(__file__)))
     assert res.returncode == 0, res.stdout + res.stderr

@@ -57,3 +57,29 @@ def with_water_top(batch, H=2.0):
            for a, r in zip((h, vp, vs, rho, qsi), row)]
     out.append(np.concatenate([nlay, [n + 1]]).astype(np.int32))
     return tuple(out)
+
+
+def root_brackets(c, t, model, nlay, wave, c0=0.5, n=460):
+    """dc-wide brackets [lo, lo + 0.01] around each (period, model) lane's
+    lowest root, with the closure frozen at the upper end (the solver's
+    convention): the first sign change of F on a 0.01 km/s scan from
+    ``c0``.  ``c`` only gives the (K, B) lane shape; float32 torch
+    tensors in, (lo, hi, mm_frozen) out."""
+    import torch
+
+    from pysurfinv_tpu_torch.ops.secular_lanes import secular_lanes_plain
+
+    K, B = c.shape
+    cs = c0 + 0.01 * torch.arange(n, dtype=torch.float32)
+    grid = cs[:, None, None].expand(n, K, B).reshape(n * K, B).contiguous()
+    F, _, _ = secular_lanes_plain(
+        grid, t.repeat(n, 1), torch.zeros(grid.shape, dtype=torch.int32),
+        *model, nlay, wave=wave)
+    s = torch.sign(F).reshape(n, K, B)
+    flip = torch.argmax((s[:-1] != s[1:]).to(torch.int8), dim=0)
+    lo = cs[flip].contiguous()
+    hi = lo + 0.01
+    _, _, mm = secular_lanes_plain(hi, t, torch.zeros(c.shape,
+                                   dtype=torch.int32), *model, nlay,
+                                   wave=wave)
+    return lo, hi, mm
