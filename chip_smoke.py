@@ -20,7 +20,8 @@ Phases, each of which raises on failure:
 
   1. card     the card's name and power limit (nvidia-smi) — no CPU
               fallback: without CUDA the script exits non-zero;
-  2. build    the four secular-lane kernels, built with nvcc from csrc/;
+  2. build    the four secular-lane kernels, built with nvcc from csrc/,
+              with each kernel's registers and spills from ptxas;
   3. kernels  each kernel against its plain PyTorch version on the card,
               at main-path lane shapes (K=33 cold sweep, K=18 refinement
               and tangents, B=4096): |dF| <= 1e-4 * max_k |F| per model
@@ -28,7 +29,11 @@ Phases, each of which raises on failure:
               >= 99.99% of lanes; refine_lanes on brackets from a sweep
               around each lane's root, n_newton 2 (with u) and 0 (the
               fuse_illinois form): |droot| <= 1e-4 km/s on >= 99.99% of
-              lanes, u within 1e-3 relative at q99;
+              lanes, u within 1e-3 relative at q99; whether each kernel
+              is bitwise equal to its plain version is recorded, and
+              secular_lanes and secular_lanes_grad must be, there and at
+              ragged shapes (B=4095; K=1, 13 and 90; dynamic and pinned
+              closures);
   4. slice    the solve for Rayleigh (bench config), Love (nbisect 6), a
               warm Rayleigh re-solve with the sampler's settings
               (newton_sep=3) seeded with the Rayleigh roots, and Rayleigh
@@ -50,10 +55,11 @@ Phases, each of which raises on failure:
               launch counters moved; a torch.profiler trace (CUDA
               activity) of a 6-row run gives the device idle share;
   6. time     solves/s per run, each kernel's time beside its plain
-              version's and its bound, refine_lanes beside the separate
-              frozen + gradient launches it replaces (CUDA events for
-              kernels, best of 3 windows after a warm-up; host clock
-              around synchronised solves).
+              version's and its bound, and at the sampler's size (B=1,920,
+              K=18; K=90 for secular_lanes, the fused warm sweep),
+              refine_lanes beside the separate frozen + gradient launches
+              it replaces (CUDA events for kernels, best of 3 windows
+              after a warm-up; host clock around synchronised solves).
 
 Prints the card line and a JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``.  Run from the repository
@@ -119,6 +125,7 @@ MC_UNCERS = [0.006550350458769691, 0.005, 0.005, 0.005, 0.005, 0.005, 0.005,
              0.00751713560920708, 0.007910350806141024, 0.007711019920661203,
              0.010152973423528881, 0.01062776863809981, 0.015829560954127662]
 MC_POINTS, MC_RUN_N, MC_CHAIN_L, MC_SEGMENT, MC_SEED = 64, 6000, 200, 100, 1
+B_SAMPLER = MC_POINTS * (MC_RUN_N // MC_CHAIN_L)  # the sampler's 1,920 lanes
 
 KERNEL_SOURCE = "pysurfinv_tpu_torch/csrc/secular_lanes.cu"
 REPLACES = {
@@ -132,18 +139,30 @@ REPLACES = {
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): 3.35 TB/s
 # of HBM and 67 TFLOP/s of FP32 outside the tensor cores.  Operations are
 # counted off csrc/secular_lane.cuh per applied layer step of one lane:
-# every FP32 +, -, *, / and each expf/sinf/cosf/sqrtf/logf as one (the
-# layer's material, the wavenumbers, two pq regimes, the Dunkin matrix,
-# the 5-vector update and its renormalisation: ~233 for Rayleigh; the
-# Haskell pair: ~55 for Love); the gradient's dual numbers carry two
-# tangents, counted as 4x.  A lane applies the layers above its closure
-# (mm - 1 of them, from the launch's own mm), so the count follows the
-# data of this run.  Bytes: every input read once, every output written
-# once.
+# every FP32 +, -, *, / and each expf/sincosf half/sqrtf/logf as one,
+# with the evanescent side of each regime (the side most applied layers
+# take here) and without the loop-invariant c*c and 2 pi / (c T): the
+# layer's material 12, the wavenumbers 12, two pq regimes 18, the Dunkin
+# matrix and 5-vector update 127, the renormalisation 11 -> 182 for
+# Rayleigh; the Haskell pair 24 + material 12 + renormalisation 5 -> 41
+# for Love; the dynamic walk adds 3 (Rayleigh) or a second material read
+# and its sum, 15 (Love), per layer.  The gradient's dual numbers carry
+# two tangents, counted as 4x.  A lane applies the layers above its
+# closure (mm - 1 of them, from the launch's own mm), so the count
+# follows the data of this run.  Bytes: every input read once, every
+# output written once.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-OPS_PER_LAYER = {"rayleigh": 233, "love": 55}
+OPS_PER_LAYER = {"rayleigh": 182, "love": 41}
+WALK_OPS_PER_LAYER = {"rayleigh": 3, "love": 15}
 DUAL_FACTOR = 4
+# the kernels' symbols in the ptxas report, and the H100's register file
+# (65,536 a SM, allocated 256 a warp; at most 64 warps and 32 blocks a SM)
+PTXAS_NAMES = {"secular_lanes": "secular_lanes_kernel",
+               "secular_lanes_frozen": "secular_frozen_kernel",
+               "secular_lanes_grad": "secular_grad_kernel",
+               "refine_lanes": "refine_kernel"}
+BLOCK = 128
 
 
 def bound(nbytes, ops):
@@ -151,6 +170,55 @@ def bound(nbytes, ops):
     ``ops`` operations."""
     tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def ptxas_usage(report):
+    """{(kernel, wave): (registers, spill-store bytes)} from nvcc's
+    ``-Xptxas -v`` report (template argument true = Rayleigh)."""
+    usage, name, spill = {}, None, 0
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = None
+            for k, sym in PTXAS_NAMES.items():
+                for flag, wave in (("ILb1", "rayleigh"), ("ILb0", "love")):
+                    if sym + flag in line:
+                        name = (k, wave)
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes stack frame,")[1].split()[0])
+        elif "Used" in line and "registers" in line and name:
+            usage[name] = (int(line.split("Used")[1].split()[0]), spill)
+            name = None
+    return usage
+
+
+def occupancy(registers, threads=BLOCK):
+    """Theoretical occupancy (resident warps over 64) of a kernel with
+    ``registers`` a thread in blocks of ``threads``, by registers alone."""
+    warps = threads // 32
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(32, 65536 // (per_warp * warps), 64 // warps)
+    return blocks * warps / 64
+
+
+def warm_sweep(root, tk):
+    """The sampler's fused warm sweep (ops/dispersion.py:340-352 with its
+    settings nscan 32, coarse 8, backoff 12, dc 0.01): 5 trial c a
+    period from 0.12 km/s below each root, (18 x 5, B) lanes."""
+    import torch
+    ladder = 0.08 * torch.arange(5, device=root.device, dtype=root.dtype)
+    P, B = root.shape
+    cs = ((root - 0.12)[:, None, :] + ladder[None, :, None]).reshape(-1, B)
+    return (cs.contiguous(),
+            tk[:, None, :].expand(P, 5, B).reshape(-1, B).contiguous())
+
+
+def bitwise(a, b):
+    """Every output of a kernel (a tensor or a tuple of them) bit for bit
+    equal to its plain version's."""
+    import torch
+    a, b = ((x,) if torch.is_tensor(x) else x for x in (a, b))
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
 
 
 def log(*a):
@@ -240,9 +308,13 @@ def main():
     build_s = time.perf_counter() - t0
     log(f"[build] secular-lane kernels: nvcc {info['seconds']:.1f} s, "
         f"load total {build_s:.1f} s ({card})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build]  " + line.strip())
+    usage = ptxas_usage(info["log"])
+    for (name, wave), (regs, spill) in sorted(usage.items()):
+        log(f"[build]  {name} {wave}: {regs} registers, {spill} bytes spill "
+            f"stores, theoretical occupancy {occupancy(regs):.4f} "
+            f"(blocks of {BLOCK})")
+    check(len(usage) == 2 * len(REPLACES),
+          f"ptxas report lists {sorted(usage)}, not every kernel")
 
     # ---- model -------------------------------------------------------
     batch, nlay = bench_batch(B_SLICE, seed=0)
@@ -268,6 +340,7 @@ def main():
 
     # ---- 3. kernels against their plain versions ---------------------
     kerr = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    bits = {k: {} for k in REPLACES}
     for wave, cfg in waves.items():
         sub = [a[:B_LANES] for a in arrs]
         nlb = nl[:B_LANES]
@@ -288,6 +361,7 @@ def main():
         check(frac >= 0.9999, f"{wave} secular_lanes b_hs/mm agree on "
               f"{frac:.6f} of lanes")
         e1 = compare_F(k1[0], p1[0], same, f"{wave} secular_lanes")
+        bits["secular_lanes"][wave] = bitwise(k1, p1)
 
         # K=18 refinement lanes: the roots of a kernel solve, +-0.17 km/s
         # apart across periods for F, at the roots for F_T/F_c
@@ -302,6 +376,7 @@ def main():
         p2 = sl.secular_lanes_frozen(off, tk, mm, *model, nlb, wave=wave,
                                      backend="plain")
         e2 = compare_F(k2, p2, None, f"{wave} secular_lanes_frozen")
+        bits["secular_lanes_frozen"][wave] = bitwise(k2, p2)
         k3 = sl.secular_lanes_grad(off, tk, mm, *model, nlb, wave=wave)
         p3 = sl.secular_lanes_grad(off, tk, mm, *model, nlb, wave=wave,
                                    backend="plain")
@@ -310,6 +385,11 @@ def main():
         p3r = sl.secular_lanes_grad(root, tk, mm, *model, nlb, wave=wave,
                                     backend="plain")
         torch.cuda.synchronize()
+        bits["secular_lanes_grad"][wave] = (bitwise(k3, p3)
+                                            and bitwise(k3r, p3r))
+        for name in ("secular_lanes", "secular_lanes_grad"):
+            check(bits[name][wave], f"{wave} {name} is not bitwise equal to "
+                  "its plain version")
         rk, rp = k3r[2] / k3r[1], p3r[2] / p3r[1]
         rerr = float(((rk - rp).abs()
                       / torch.clamp(rp.abs(), min=1e-6)).max())
@@ -318,7 +398,11 @@ def main():
         log(f"[kernels] {wave}: secular_lanes max|dF| {e1:.3e} (b_hs/mm "
             f"agree {frac:.6f}); secular_lanes_frozen max|dF| {e2:.3e}; "
             f"secular_lanes_grad max|dF| {e3:.3e}, F_T/F_c max rel err "
-            f"{rerr:.3e} ({card})")
+            f"{rerr:.3e}; bitwise equal to the plain versions: "
+            f"secular_lanes {bits['secular_lanes'][wave]}, "
+            f"secular_lanes_frozen {bits['secular_lanes_frozen'][wave]}, "
+            f"secular_lanes_grad {bits['secular_lanes_grad'][wave]} "
+            f"({card})")
         for name, e in (("secular_lanes", e1), ("secular_lanes_frozen", e2),
                         ("secular_lanes_grad", e3)):
             kerr[name]["max_abs_err"] = max(kerr[name]["max_abs_err"], e)
@@ -340,8 +424,7 @@ def main():
             within = float((d <= 1e-4).float().mean())
             check(within >= 0.9999, f"{wave} refine_lanes n_newton="
                   f"{n_newton}: |droot| <= 1e-4 on {within:.6f} of lanes")
-            bitwise = bool(torch.equal(kr[0], pr[0])
-                           and torch.equal(kr[1], pr[1]))
+            same_bits = bitwise(kr, pr)
             uq = 0.0
             if group:
                 urel = ((kr[1] - pr[1]).abs()
@@ -352,13 +435,18 @@ def main():
             inside = float(((kr[0] >= lo) & (kr[0] <= hi)).float().mean())
             log(f"[kernels] {wave}: refine_lanes K=18 B={B_LANES} "
                 f"n_ill={cfg.nbisect} n_newton={n_newton}: bitwise "
-                f"{bitwise}, max|droot| {float(d.max()):.3e} km/s, q99 "
+                f"{same_bits}, max|droot| {float(d.max()):.3e} km/s, q99 "
                 f"u rel {uq:.3e}, roots inside their bracket {inside:.6f} "
                 f"({card})")
             kerr["refine_lanes"]["max_abs_err"] = max(
                 kerr["refine_lanes"]["max_abs_err"], float(d.max()))
             kerr["refine_lanes"][f"bitwise_{wave}_nnewton{n_newton}"] = \
-                bitwise
+                same_bits
+            bits["refine_lanes"][wave] = (bits["refine_lanes"].get(wave, True)
+                                          and same_bits)
+        ragged_check(sl, [a[:B_LANES - 1] for a in arrs], nl[:B_LANES - 1],
+                     root[:, :B_LANES - 1].contiguous(),
+                     tk[:, :B_LANES - 1].contiguous(), wave, lane_model, card)
 
     # ---- 4. the solve ------------------------------------------------
     sl.reset_launch_counts()
@@ -510,7 +598,9 @@ def main():
             evals = {"secular_lanes": 1, "secular_lanes_frozen": 1,
                      "secular_lanes_grad": DUAL_FACTOR,
                      "refine_lanes": n_ill + 2 + 2 * DUAL_FACTOR}[name]
-            bms, bby = bound(nbytes, applied[name] * per_lane * evals)
+            ops = per_lane + (WALK_OPS_PER_LAYER[wave]
+                              if name == "secular_lanes" else 0)
+            bms, bby = bound(nbytes, applied[name] * ops * evals)
             kern[(name, wave)] = (ms, pms, bms, bby)
             log(f"[time] {name} {wave} K={K} B={B_SLICE} L={L}: kernel "
                 f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
@@ -534,6 +624,10 @@ def main():
             f"ms vs the separate launches it replaces ({n_ill + 2} "
             f"secular_lanes_frozen + 2 secular_lanes_grad + glue) "
             f"{sep_ms:.3f} ms ({card})")
+        sampler_size_times(sl, kern, [a[:B_SAMPLER] for a in arrs],
+                           nl[:B_SAMPLER], root[:, :B_SAMPLER].contiguous(),
+                           tk[:, :B_SAMPLER].contiguous(), wave, n_ill,
+                           lane_model, card)
 
     kernels = []
     for name, rep in REPLACES.items():
@@ -545,6 +639,10 @@ def main():
                                                     "rayleigh")],
                          love_separate_launches_ms=kern[("separate_2_3",
                                                          "love")])
+        if name == "secular_lanes":
+            extra.update(sampler_k90_ms={
+                w: kern[("secular_lanes_k90", w)] for w in waves})
+        regs = {w: usage[(name, w)][0] for w in waves}
         kernels.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=rep,
             launches=launches_solve[name] + launches_mc[name],
@@ -555,7 +653,11 @@ def main():
             launches_sampler_path=launches_mc[name],
             love_ms=lms, love_plain_ms=lpms, love_bound_ms=lbms,
             shape=f"K={33 if name == 'secular_lanes' else 18},B={B_SLICE},"
-                  f"L={L}", **extra))
+                  f"L={L}", bitwise=bits[name], registers=regs,
+            spill_bytes={w: usage[(name, w)][1] for w in waves},
+            occupancy={w: occupancy(r) for w, r in regs.items()},
+            sampler_ms={w: kern[(name + "_sampler", w)] for w in waves},
+            **extra))
 
     log(f"[time] summary ({card}): solves/s " + json.dumps(
         {k: round(v, 1) for k, v in solves.items()}) + "; sampler " +
@@ -749,6 +851,75 @@ def sampler_phase(sl, card):
         f"{wall:.3f} s): cumulative s by function: " + "; ".join(
             f"{k} {v:.3f}" for k, v in top) + f" ({card})")
     return launches, res
+
+
+def sampler_size_times(sl, kern, sub, nlay, root, tk, wave, n_ill,
+                       lane_model, card):
+    """Each kernel's time at the sampler's lane count: K=18 (a row per
+    period: the sign probe, the tangents, a refinement) and K=90 for
+    secular_lanes (the fused warm sweep)."""
+    import torch
+    model = lane_model(sub, nlay, wave)
+    zero = lambda x: torch.zeros(x.shape, dtype=torch.int32,  # noqa: E731
+                                 device=x.device)
+    _, _, mm = sl.secular_lanes(root + DC, tk, zero(root), *model, nlay,
+                                wave=wave)
+    c90, t90 = warm_sweep(root, tk)
+    lo, hi, mmb = sweep_brackets(sl, root, tk, model, nlay, wave)
+    calls = {
+        "secular_lanes": lambda: sl.secular_lanes(root, tk, zero(root),
+                                                  *model, nlay, wave=wave),
+        "secular_lanes_k90": lambda: sl.secular_lanes(
+            c90, t90, zero(c90), *model, nlay, wave=wave),
+        "secular_lanes_frozen": lambda: sl.secular_lanes_frozen(
+            root, tk, mm, *model, nlay, wave=wave),
+        "secular_lanes_grad": lambda: sl.secular_lanes_grad(
+            root, tk, mm, *model, nlay, wave=wave),
+        "refine_lanes": lambda: sl.refine_lanes(
+            lo, hi, tk, mmb, *model, nlay, wave=wave, n_ill=n_ill,
+            n_newton=2),
+    }
+    for name, fn in calls.items():
+        ms = time_cuda(fn, n=10)
+        key = name if name.endswith("_k90") else name + "_sampler"
+        kern[(key, wave)] = ms
+        log(f"[time] {name.replace('_k90', '')} {wave} at the sampler's "
+            f"size K={90 if name.endswith('_k90') else 18} "
+            f"B={root.shape[1]}: kernel {ms:.4f} ms ({card})")
+
+
+def ragged_check(sl, sub, nlay, root, tk, wave, lane_model, card):
+    """secular_lanes (dynamic and pinned closures) and secular_lanes_grad
+    bit for bit against their plain versions at ragged shapes: B not a
+    multiple of the kernels' 128-model blocks, K = 1, 13 (a re-scan) and
+    90 (the sampler's fused warm sweep), rows from that sweep."""
+    import torch
+    model = lane_model(sub, nlay, wave)
+    c90, t90 = warm_sweep(root, tk)
+    _, _, pin90 = sl.secular_lanes(c90, t90, torch.zeros(c90.shape,
+                                   dtype=torch.int32, device=c90.device),
+                                   *model, nlay, wave=wave, backend="plain")
+    shapes = []
+    for K in (1, 13, 90):
+        c, t, pin = (x[:K].contiguous() for x in (c90, t90, pin90))
+        for kind, mmf in (("dynamic", torch.zeros_like(pin)),
+                          ("pinned", pin)):
+            same = bitwise(sl.secular_lanes(c, t, mmf, *model, nlay,
+                                            wave=wave),
+                           sl.secular_lanes(c, t, mmf, *model, nlay,
+                                            wave=wave, backend="plain"))
+            check(same, f"{wave} secular_lanes {kind} K={K} B={c.shape[1]}"
+                  " is not bitwise equal to its plain version")
+        same = bitwise(sl.secular_lanes_grad(c, t, pin, *model, nlay,
+                                             wave=wave),
+                       sl.secular_lanes_grad(c, t, pin, *model, nlay,
+                                             wave=wave, backend="plain"))
+        check(same, f"{wave} secular_lanes_grad K={K} B={c.shape[1]} is "
+              "not bitwise equal to its plain version")
+        shapes.append(f"K={K}")
+    log(f"[kernels] {wave}: ragged B={c90.shape[1]} "
+        f"{', '.join(shapes)}: secular_lanes (dynamic and pinned) and "
+        f"secular_lanes_grad bitwise equal to their plain versions ({card})")
 
 
 def compare_F(Fk, Fp, mask, what):

@@ -1,4 +1,4 @@
-// Per-lane secular-function arithmetic shared by the three CUDA kernels
+// Per-lane secular-function arithmetic shared by the four CUDA kernels
 // of secular_lanes.cu (and by any host build of this header).
 //
 // One lane is one (trial phase velocity c, period T, model b) triple.
@@ -15,9 +15,12 @@
 // convention), and the per-layer renormalisation factor is taken from
 // the primal values, so it carries no tangent.
 //
-// Accurate libm functions (expf, sinf, cosf, sqrtf, logf, IEEE division):
+// Accurate libm functions (expf, sincosf, sqrtf, logf, IEEE division):
 // build without --use_fast_math, whose approximations move the sign of F
-// near a root.
+// near a root.  Each regime computes only its own side (expf for an
+// evanescent wavenumber, sincosf for an oscillatory one): the selected
+// value is the same expression on the same inputs as the plain
+// version's select, so the bits do not change.
 #pragma once
 
 #include <math.h>
@@ -96,10 +99,7 @@ SL_HD Dual2 rcp(const Dual2& x) {
 SL_HD float s_exp(float x) { return expf(x); }
 SL_HD float s_sqrt(float x) { return sqrtf(x); }
 SL_HD float s_abs(float x) { return fabsf(x); }
-SL_HD void s_sincos(float x, float* s, float* c) {
-  *s = sinf(x);
-  *c = cosf(x);
-}
+SL_HD void s_sincos(float x, float* s, float* c) { sincosf(x, s, c); }
 
 SL_HD Dual2 s_exp(const Dual2& x) {
   const float e = expf(x.v);
@@ -111,7 +111,8 @@ SL_HD Dual2 s_sqrt(const Dual2& x) {
 }
 SL_HD Dual2 s_abs(const Dual2& x) { return x.v >= 0.f ? x : -x; }
 SL_HD void s_sincos(const Dual2& x, Dual2* s, Dual2* c) {
-  const float sn = sinf(x.v), cs = cosf(x.v);
+  float sn, cs;
+  sincosf(x.v, &sn, &cs);
   *s = Dual2(sn, cs * x.dc, cs * x.dt);
   *c = Dual2(cs, -sn * x.dc, -sn * x.dt);
 }
@@ -153,26 +154,29 @@ SL_HD Layer layer_at(const Model& m, int l, int col, float lnt, bool atten) {
 // Per-layer updates (pallas_secular.py:86-239)
 // ---------------------------------------------------------------------------
 
-// Branchless (r*sin, sin/r, cos) for one signed wavenumber regime.  Only
-// the selected branch reaches the output: exp(pm_ev) can underflow in a
-// deep layer and make 1/e infinite, which never leaves this function
-// except through a select.
+// (r*sin, sin/r, cos) for one signed wavenumber regime: sinh/cosh for an
+// evanescent r, sin/cos for an oscillatory one, the limit otherwise.
 template <class S>
 SL_HD void pq(const S& r, const S& wd, S* rsin, S* sinr, S* cosx) {
-  const bool ev = val(r) < -kAccur;
-  const bool osc = val(r) > kAccur;
   const S pm = wd * r;
-  const S pm_ev = ev ? pm : S(0.f);
-  const S pm_osc = osc ? pm : S(0.f);
-  const S r_safe = fabsf(val(r)) > kAccur ? r : S(1.f);
-  const S e = s_exp(pm_ev);
-  const S einv = rcp(e);
-  const S sh = 0.5f * (e - einv), ch = 0.5f * (e + einv);
-  S sn, cs;
-  s_sincos(pm_osc, &sn, &cs);
-  *rsin = ev ? (-r) * sh : (osc ? r * sn : S(0.f));
-  *sinr = ev ? sh / r_safe : (osc ? sn / r_safe : wd);
-  *cosx = ev ? ch : (osc ? cs : S(1.f));
+  if (val(r) < -kAccur) {
+    const S e = s_exp(pm);
+    const S einv = rcp(e);
+    const S sh = 0.5f * (e - einv);
+    *rsin = (-r) * sh;
+    *sinr = sh / r;
+    *cosx = 0.5f * (e + einv);
+  } else if (val(r) > kAccur) {
+    S sn, cs;
+    s_sincos(pm, &sn, &cs);
+    *rsin = r * sn;
+    *sinr = sn / r;
+    *cosx = cs;
+  } else {
+    *rsin = S(0.f);
+    *sinr = wd;
+    *cosx = S(1.f);
+  }
 }
 
 // Signed ra, rb and g, g1 (surfa.f:211-258); liquid-safe.
@@ -192,6 +196,84 @@ SL_HD void wavenumbers(const S& c, float a, float b, S* ra, S* rb, S* g,
   *g1 = *g - 1.f;
 }
 
+// The Dunkin matrix of one layer applied to the 5-vector (surfa.f:259-335),
+// from the layer's (r*sin, sin/r, cos) pairs.  Each entry is formed where
+// the rows that use it need it and added to them at once, every row
+// summed in the plain version's order, so that few entries are live at a
+// time (the Dual2 body's registers).  kLiquid: the liquid-surface-layer
+// override (surfa.f:216-251), e11 = cosp, e21 = rhoc * sinpr and every
+// other entry times 0, the TPU kernel's multiplicative mask (liquid
+// layers are shallow: entries are finite); a solid layer's factor of 1
+// changes no bits and is left out.
+template <bool kLiquid, class S>
+SL_HD void dunkin_update(S bv[5], const S& rhoc, const S& g, const S& g1,
+                         const S& rsinp, const S& sinpr, const S& cosp,
+                         const S& rsinq, const S& sinqr, const S& cosq) {
+  auto mask = [](const S& e) {
+    if constexpr (kLiquid) {
+      return e * 0.f;
+    } else {
+      return e;
+    }
+  };
+  const S e42 = mask(rsinp * sinqr);
+  const S e24 = mask(sinpr * rsinq);
+  const S rr = rsinp * rsinq;
+  const S ss = sinpr * sinqr;
+  const S rs1 = rsinp * cosq;
+  const S rs2 = sinqr * cosp;
+  const S rs3 = sinpr * cosq;
+  const S rs4 = rsinq * cosp;
+  const S cc = cosp * cosq;
+  const S b1 = bv[0], b2 = bv[1], b3 = bv[2], b4 = bv[3], b5 = bv[4];
+  const S gs = g * g;
+  const S g1s = g1 * g1;
+  const S ccm = 1.f - cc;
+  const S e51 = mask((rhoc * rhoc) *
+                     (2.f * gs * g1s * ccm + gs * gs * rr + g1s * g1s * ss));
+  S n4 = e51 * b1;
+  const S e41 = mask(-rhoc * (g1s * rs2 + gs * rs1));
+  n4 = n4 - e41 * b2;
+  S n3 = e41 * b1;
+  const S gm = 2.f * g - 1.f;
+  const S gg1 = g * g1;
+  const S e31 = mask(rhoc * (gg1 * gm * ccm + g1s * g1 * ss + gs * g * rr));
+  n4 = n4 + 2.f * e31 * b3;
+  S n2 = e31 * b1;
+  const S e21 = kLiquid ? rhoc * sinpr : rhoc * (g1s * rs3 + gs * rs4);
+  n4 = n4 - e21 * b4;
+  S n1 = e21 * b1;
+  const S suu = gs * rr + g1s * ss;
+  const S e11 = kLiquid ? cosp : (2.f * gs - gm) * cc - suu - 2.f * gg1;
+  bv[4] = n4 + e11 * b5;
+  S n0 = e11 * b1;
+  n3 = n3 + e42 * b2;
+  const S e32 = mask(g1 * rs2 + g * rs1);
+  n3 = n3 - 2.f * e32 * b3;
+  n2 = n2 + e32 * b2;
+  const S e22 = mask(cc);
+  n3 = n3 + e22 * b4;
+  n1 = n1 + e22 * b2;
+  const S inv_rhoc = rcp(rhoc);
+  const S e12 = mask(-(rs1 + rs2) * inv_rhoc);
+  bv[3] = n3 - e12 * b5;
+  n0 = n0 + e12 * b2;
+  const S e33 = mask(1.f + 2.f * (2.f * gg1 * ccm + suu));
+  n2 = n2 + e33 * b3;
+  const S e23 = mask(2.f * (g * rs4 + g1 * rs3));
+  n2 = n2 - 0.5f * e23 * b4;
+  n1 = n1 + e23 * b3;
+  const S e13 = mask(-2.f * (gm * ccm + g1 * ss + g * rr) * inv_rhoc);
+  bv[2] = n2 + 0.5f * e13 * b5;
+  n0 = n0 + e13 * b3;
+  n1 = n1 + e24 * b4;
+  const S e14 = mask((rs3 + rs4) * inv_rhoc);
+  bv[1] = n1 - e14 * b5;
+  n0 = n0 + e14 * b4;
+  const S e15 = mask((2.f * ccm + rr + ss) * inv_rhoc * inv_rhoc);
+  bv[0] = n0 + e15 * b5;
+}
+
 // Unscaled Dunkin 5-vector update through one layer (surfa.f:259-335).
 template <class S>
 SL_HD void ray_prop(const S& c, const S& t, S bv[5], const Layer& y) {
@@ -204,58 +286,14 @@ SL_HD void ray_prop(const S& c, const S& t, S bv[5], const Layer& y) {
   S rsinp, sinpr, cosp, rsinq, sinqr, cosq;
   pq(ra, wd, &rsinp, &sinpr, &cosp);
   pq(rb, wd, &rsinq, &sinqr, &cosq);
-
   const S rhoc = y.rho * csq;
-  const S rr = rsinp * rsinq;
-  const S ss = sinpr * sinqr;
-  const S cc = cosp * cosq;
-  const S rs1 = rsinp * cosq;
-  const S rs2 = sinqr * cosp;
-  const S rs3 = sinpr * cosq;
-  const S rs4 = rsinq * cosp;
-  const S gm = 2.f * g - 1.f;
-  const S gs = g * g;
-  const S g1s = g1 * g1;
-  const S ccm = 1.f - cc;
-  const S gg1 = g * g1;
-  const S rhocs = rhoc * rhoc;
-  const S suu = gs * rr + g1s * ss;
-  const S inv_rhoc = rcp(rhoc);
-
-  S e11 = (2.f * gs - gm) * cc - suu - 2.f * gg1;
-  S e12 = -(rs1 + rs2) * inv_rhoc;
-  S e13 = -2.f * (gm * ccm + g1 * ss + g * rr) * inv_rhoc;
-  S e14 = (rs3 + rs4) * inv_rhoc;
-  S e15 = (2.f * ccm + rr + ss) * inv_rhoc * inv_rhoc;
-  S e21 = rhoc * (g1s * rs3 + gs * rs4);
-  S e22 = cc;
-  S e23 = 2.f * (g * rs4 + g1 * rs3);
-  S e24 = sinpr * rsinq;
-  S e31 = rhoc * (gg1 * gm * ccm + g1s * g1 * ss + gs * g * rr);
-  S e32 = g1 * rs2 + g * rs1;
-  S e33 = 1.f + 2.f * (2.f * gg1 * ccm + suu);
-  S e41 = -rhoc * (g1s * rs2 + gs * rs1);
-  S e42 = rsinp * sinqr;
-  S e51 = rhocs * (2.f * gs * g1s * ccm + gs * gs * rr + g1s * g1s * ss);
-
-  // liquid-surface-layer override (surfa.f:216-251), the TPU kernel's
-  // multiplicative mask (liquid layers are shallow: entries are finite)
   if (liquid) {
-    e11 = cosp;
-    e21 = rhoc * sinpr;
+    dunkin_update<true>(bv, rhoc, g, g1, rsinp, sinpr, cosp, rsinq, sinqr,
+                        cosq);
+  } else {
+    dunkin_update<false>(bv, rhoc, g, g1, rsinp, sinpr, cosp, rsinq, sinqr,
+                         cosq);
   }
-  const float liq0 = liquid ? 0.f : 1.f;
-  e12 = e12 * liq0; e13 = e13 * liq0; e14 = e14 * liq0; e15 = e15 * liq0;
-  e22 = e22 * liq0; e23 = e23 * liq0; e24 = e24 * liq0;
-  e31 = e31 * liq0; e32 = e32 * liq0; e33 = e33 * liq0;
-  e41 = e41 * liq0; e42 = e42 * liq0; e51 = e51 * liq0;
-
-  const S b1 = bv[0], b2 = bv[1], b3 = bv[2], b4 = bv[3], b5 = bv[4];
-  bv[0] = e11 * b1 + e12 * b2 + e13 * b3 + e14 * b4 + e15 * b5;
-  bv[1] = e21 * b1 + e22 * b2 + e23 * b3 + e24 * b4 - e14 * b5;
-  bv[2] = e31 * b1 + e32 * b2 + e33 * b3 - 0.5f * e23 * b4 + 0.5f * e13 * b5;
-  bv[3] = e41 * b1 + e42 * b2 - 2.f * e32 * b3 + e22 * b4 - e12 * b5;
-  bv[4] = e51 * b1 - e41 * b2 + 2.f * e31 * b3 - e21 * b4 + e11 * b5;
 }
 
 // Halfspace closure -> secular value (surfa.f:340-354).
@@ -293,18 +331,23 @@ SL_HD void love_prop(const S& c, const S& t, S* ut, S* tt, const Layer& y) {
   const float hmu = y.rho * b_safe * b_safe;
   const S q = (-wvno) * y.d * rb;
   const bool big = val(rb) >= 1e-20f;
-  const bool osc = val(c) > b_safe && big;
-  const bool ev = val(c) < b_safe && big;
-  const S q_osc = osc ? q : S(0.f);
-  const S q_ev = ev ? q : S(0.f);
-  const S rb_safe = big ? rb : S(1.f);
-  const S eq = s_exp(q_ev);  // q_ev <= 0
-  const S shq = 0.5f * (eq - rcp(eq)), chq = 0.5f * (eq + rcp(eq));
-  S sn, cs;
-  s_sincos(q_osc, &sn, &cs);
-  const S yv = osc ? sn / rb_safe : (ev ? shq / rb_safe : (-wvno) * y.d);
-  const S z = osc ? rb * sn : (ev ? (-rb) * shq : S(0.f));
-  const S cosq = osc ? cs : (ev ? chq : S(1.f));
+  S yv, z, cosq;
+  if (val(c) > b_safe && big) {  // oscillatory
+    S sn;
+    s_sincos(q, &sn, &cosq);
+    yv = sn / rb;
+    z = rb * sn;
+  } else if (val(c) < b_safe && big) {  // evanescent, q <= 0
+    const S eq = s_exp(q);
+    const S shq = 0.5f * (eq - rcp(eq));
+    yv = shq / rb;
+    z = (-rb) * shq;
+    cosq = 0.5f * (eq + rcp(eq));
+  } else {
+    yv = (-wvno) * y.d;
+    z = S(0.f);
+    cosq = S(1.f);
+  }
   const S u0 = *ut, t0 = *tt;
   *ut = cosq * u0 - yv * t0 / hmu;
   *tt = hmu * z * u0 + cosq * t0;
@@ -320,14 +363,26 @@ SL_HD void love_init(const S& c, float b_h, float rho_h, S* ut, S* tt) {
   *tt = rho_h * b_hs * b_hs * rb_h;
 }
 
-// Divide n values by the max-abs of the first m of them (primal values
-// only: the factor carries no tangent).
+// Divide n values by their max-abs (primal values only: the factor
+// carries no tangent).  Returns true when the factor is 1, i.e. the
+// values came back unchanged.
 template <class S>
-SL_HD void renorm(S* x, int n, int m) {
+SL_HD bool renorm(S* x, int n) {
   float scale = 0.f;
-  for (int i = 0; i < m; ++i) scale = fmaxf(scale, fabsf(val(x[i])));
+  for (int i = 0; i < n; ++i) scale = fmaxf(scale, fabsf(val(x[i])));
   const float inv = 1.f / (scale > 0.f ? scale : 1.f);
   for (int i = 0; i < n; ++i) x[i] = x[i] * inv;
+  return inv == 1.f;
+}
+
+// ``count`` renormalisations of values no layer updates in between (the
+// masked layers, which on the TPU only renormalise).  Once one leaves
+// the values unchanged, so does every later one: stop there.
+template <class S>
+SL_HD void renorm_steps(S* x, int n, int count) {
+  for (int i = 0; i < count; ++i) {
+    if (renorm(x, n)) break;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -379,12 +434,10 @@ SL_HD Truncation walk(const Model& m, int col, float c, float t, float lnt,
     pending = pending || (exceed && l == 0);
     if constexpr (kRayleigh) {
       ray_prop(c, t, bv, y);
-      renorm(bv, 5, 5);
+      renorm(bv, 5);
     }
   }
-  if constexpr (kRayleigh) {
-    for (; l < m.L - 1; ++l) renorm(bv, 5, 5);
-  }
+  if constexpr (kRayleigh) renorm_steps(bv, 5, m.L - 1 - l);
   if (!closed) tr.hs = layer_at(m, m.L - 1, col, lnt, atten);
   return tr;
 }
@@ -399,39 +452,45 @@ SL_HD Layer frozen_halfspace(const Model& m, int col, float lnt, bool atten,
 
 // Rayleigh at frozen truncation: layers l < mmf-1 (_ray_secular_tile and
 // _ray_secular_grad_tile, pallas_secular.py:596-655), closing with the
-// captured halfspace ``hs``.
-template <class S>
+// halfspace ``hs_of()``; the masked layers below renormalise too, as on
+// the TPU.
+template <class S, class Hs>
 SL_HD S rayleigh_frozen(const Model& m, int col, const S& c, const S& t,
-                        float lnt, bool atten, int mmf, const Layer& hs) {
+                        float lnt, bool atten, int mmf, const Hs& hs_of) {
   S bv[5] = {S(1.f), S(0.f), S(0.f), S(0.f), S(0.f)};
-  for (int l = 0; l < m.L - 1; ++l) {
-    if (l < mmf - 1) ray_prop(c, t, bv, layer_at(m, l, col, lnt, atten));
-    renorm(bv, 5, 5);  // the masked layers renormalise too, as on the TPU
+  const int n = mmf - 1 < m.L - 1 ? mmf - 1 : m.L - 1;
+  int l = 0;
+  for (; l < n; ++l) {
+    ray_prop(c, t, bv, layer_at(m, l, col, lnt, atten));
+    renorm(bv, 5);
   }
+  renorm_steps(bv, 5, m.L - 1 - l);
+  const Layer hs = hs_of();
   return ray_closure(c, bv, hs.a, hs.b, hs.rho);
 }
 
 // Love upward pass from the halfspace through layers l <= mm-2 that are
 // not water (_love_kernel pass 2, _love_secular_tile,
-// _love_secular_grad_tile).  Returns F = -stress.
+// _love_secular_grad_tile).  The halfspace vector and the masked layers
+// below the closure only renormalise, as on the TPU.  Returns F = -stress.
 template <class S>
 SL_HD S love_upward(const Model& m, int col, const S& c, const S& t,
                     float lnt, bool atten, int mm, const Layer& hs) {
   S x[2];
   love_init(c, hs.b, hs.rho, &x[0], &x[1]);
-  renorm(x, 2, 2);
-  for (int l = m.L - 2; l >= 0; --l) {
-    if (l <= mm - 2) {
-      const Layer y = layer_at(m, l, col, lnt, atten);
-      if (!(fabsf(y.b) <= kAccur)) love_prop(c, t, &x[0], &x[1], y);
-    }
-    renorm(x, 2, 2);  // the masked layers renormalise too, as on the TPU
+  int top = mm - 2 < m.L - 2 ? mm - 2 : m.L - 2;  // first applied layer
+  top = top < -1 ? -1 : top;
+  renorm_steps(x, 2, 1 + (m.L - 2 - top));
+  for (int l = top; l >= 0; --l) {
+    const Layer y = layer_at(m, l, col, lnt, atten);
+    if (!(fabsf(y.b) <= kAccur)) love_prop(c, t, &x[0], &x[1], y);
+    renorm(x, 2);
   }
   return -x[1];
 }
 
 // ---------------------------------------------------------------------------
-// The three kernels' per-lane bodies
+// The kernels' per-lane bodies
 // ---------------------------------------------------------------------------
 
 // secular_lanes: F with the dynamic truncation walk (or a pinned closure
@@ -453,43 +512,48 @@ SL_HD void lane_dynamic(const Model& m, int col, float c, float t, float tm,
   *mm = tr.mm;
 }
 
-// F at the pinned closure layer mmf (>= 2) with the halfspace ``hs``
-// already captured (the refinement evaluates one lane many times).
-template <bool kRayleigh, class S>
-SL_HD S frozen_at(const Model& m, int col, const S& c, const S& t,
-                  float lnt, bool atten, int mmf, const Layer& hs) {
+// F at the pinned closure layer mmf (>= 2) with the halfspace ``hs_of()``:
+// captured once by the refinement, which evaluates one lane many times,
+// and read where the closure needs it otherwise (Rayleigh: after the
+// propagation, so that it holds no registers through it).
+template <bool kRayleigh, class S, class Hs>
+SL_HD S frozen_at(const Model& m, int col, const S& c, const S& t, float lnt,
+                  bool atten, int mmf, const Hs& hs_of) {
   if constexpr (kRayleigh) {
-    return rayleigh_frozen(m, col, c, t, lnt, atten, mmf, hs);
+    return rayleigh_frozen(m, col, c, t, lnt, atten, mmf, hs_of);
   } else {
-    return love_upward(m, col, c, t, lnt, atten, mmf, hs);
+    return love_upward(m, col, c, t, lnt, atten, mmf, hs_of());
   }
 }
 
-// secular_lanes_frozen (S = float) and secular_lanes_grad (S = Dual2):
-// F at the pinned closure layer mmf (>= 2), material at the lane's t.
-template <bool kRayleigh, class S>
-SL_HD S lane_frozen(const Model& m, int col, const S& c, const S& t,
-                    int mmf, float t_base, bool atten) {
-  const float lnt = lnt_of(t_base, val(t), atten);
-  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
-  return frozen_at<kRayleigh>(m, col, c, t, lnt, atten, mmf, hs);
-}
-
-// (F, dF/dc, dF/dT) at c with the halfspace captured.
+// secular_lanes_frozen: F at the pinned closure layer mmf (>= 2),
+// material at the lane's t.
 template <bool kRayleigh>
-SL_HD Dual2 grad_at(const Model& m, int col, float c, float t, float lnt,
-                    bool atten, int mmf, const Layer& hs) {
-  return frozen_at<kRayleigh>(m, col, Dual2(c, 1.f, 0.f), Dual2(t, 0.f, 1.f),
-                              lnt, atten, mmf, hs);
+SL_HD float lane_frozen(const Model& m, int col, float c, float t, int mmf,
+                        float t_base, bool atten) {
+  const float lnt = lnt_of(t_base, t, atten);
+  return frozen_at<kRayleigh>(m, col, c, t, lnt, atten, mmf, [&] {
+    return frozen_halfspace(m, col, lnt, atten, mmf);
+  });
 }
 
+// (F, dF/dc, dF/dT) at c.
+template <bool kRayleigh, class Hs>
+SL_HD Dual2 grad_at(const Model& m, int col, float c, float t, float lnt,
+                    bool atten, int mmf, const Hs& hs_of) {
+  return frozen_at<kRayleigh>(m, col, Dual2(c, 1.f, 0.f), Dual2(t, 0.f, 1.f),
+                              lnt, atten, mmf, hs_of);
+}
+
+// secular_lanes_grad.
 template <bool kRayleigh>
 SL_HD void lane_grad(const Model& m, int col, float c, float t, int mmf,
                      float t_base, bool atten, float* F, float* Fc,
                      float* Ft) {
   const float lnt = lnt_of(t_base, t, atten);
-  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
-  const Dual2 f = grad_at<kRayleigh>(m, col, c, t, lnt, atten, mmf, hs);
+  const Dual2 f = grad_at<kRayleigh>(m, col, c, t, lnt, atten, mmf, [&] {
+    return frozen_halfspace(m, col, lnt, atten, mmf);
+  });
   *F = f.v;
   *Fc = f.dc;
   *Ft = f.dt;
@@ -523,14 +587,15 @@ SL_HD void lane_refine(const Model& m, int col, float lo, float hi, float t,
                        float* u) {
   const float lnt = lnt_of(t_base, t, atten);
   const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
+  const auto hs_of = [&hs] { return hs; };
   float flo = 0.f, fhi = 0.f, side = 0.f;
   for (int j = 0; j < n_ill + 2; ++j) {
     if (j == 0) {
-      flo = frozen_at<kRayleigh>(m, col, lo, t, lnt, atten, mmf, hs);
+      flo = frozen_at<kRayleigh>(m, col, lo, t, lnt, atten, mmf, hs_of);
       continue;
     }
     if (j == 1) {
-      fhi = frozen_at<kRayleigh>(m, col, hi, t, lnt, atten, mmf, hs);
+      fhi = frozen_at<kRayleigh>(m, col, hi, t, lnt, atten, mmf, hs_of);
       continue;
     }
     float denom = fhi - flo;
@@ -538,7 +603,7 @@ SL_HD void lane_refine(const Model& m, int col, float lo, float hi, float t,
     const float x_int = (lo * fhi - hi * flo) / denom;
     const bool bad = !(x_int > lo && x_int < hi);
     const float x = bad ? 0.5f * (lo + hi) : x_int;
-    const float fx = frozen_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs);
+    const float fx = frozen_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs_of);
     const bool same_lo = sgn(fx) == sgn(flo);
     const float nlo = same_lo ? x : lo;
     float nflo = same_lo ? fx : flo;
@@ -558,7 +623,7 @@ SL_HD void lane_refine(const Model& m, int col, float lo, float hi, float t,
   float uu = 0.f;
   const float slo = sgn(flo);
   for (int j = 0; j < n_newton; ++j) {
-    const Dual2 g = grad_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs);
+    const Dual2 g = grad_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs_of);
     const bool same_lo = sgn(g.v) == slo;
     lo = same_lo ? x : lo;
     hi = same_lo ? hi : x;

@@ -11,24 +11,34 @@
 //   refine_kernel         <- refine_lanes         (_refine_kernel): Illinois
 //                            + clamped Newton + group velocity in one pass
 //
-// Design.  One thread per (k, b) lane; blocks of 128 threads run along the
-// model axis b, the grid is (ceil(B/128), K).  Each lane is a sequential
-// recursion of up to L-1 (~90) layer steps, with the state (the Dunkin
-// 5-vector or the Haskell pair, plus the truncation walk) in registers.
-// What bounds it on this card is FP32 and SFU throughput — per layer and
-// lane one expf, one sinf/cosf pair per wavenumber, two sqrtf and a dozen
-// IEEE divisions, ~150 flops — not memory: a layer reads 28 bytes of
-// model per lane (7 floats at l*B + b, coalesced across a warp without
-// shared memory) and the K rows of one model share them through L1/L2.
-// The simple design does nothing more about that bound than to skip the
-// arithmetic of the layers a lane does not apply (the TPU kernel computed
-// and discarded them); those steps only renormalise, as on the TPU.  The
-// ragged edge of B is masked, not padded.  The per-lane arithmetic lives
-// in secular_lane.cuh, shared by the four kernels; the gradient kernel
-// and the refinement's Newton tail run it on a dual number carrying d/dc
-// and d/dT.  Built without FMA contraction (see NVCC_FLAGS in
-// ops/secular_lanes.py), each kernel is bitwise equal to its plain
-// PyTorch version on the card.
+// Design.  One thread a (k, b) lane: a lane is a sequential recursion of
+// up to L-1 (~90) layer steps with its state (the Dunkin 5-vector or the
+// Haskell pair, and the truncation walk) in registers.  What bounds the
+// kernels on this card, measured on the H100 (PERF.md), is instruction
+// issue, not memory: a Rayleigh layer step is ~400-550 SASS instructions
+// (a dozen IEEE divisions, expf or sincosf, two sqrtf and the ~130 FP32
+// operations of the Dunkin matrix) against 28 bytes of model, and a
+// lane-layer costs no more when the model streams from HBM than when it
+// sits in L2.  The per-lane code (secular_lane.cuh, shared by the four
+// kernels) therefore spends fewer instructions: each regime computes only
+// its own side, a solid layer skips the liquid mask, the layers a lane
+// does not apply renormalise only until the vector stops changing, and
+// the dual-number body forms each Dunkin entry where its rows need it
+// (96 registers for the Rayleigh gradient kernel instead of 128: 5
+// blocks an SM instead of 4).  secular_lanes and secular_lanes_grad run
+// the K rows of a 128-model tile next to each other in the grid
+// (blockIdx.x = k), so the rows read the tile's model columns from L2:
+// Love, whose layer step costs a quarter of Rayleigh's, is the kernel
+// that shows it.  A block that staged its tile's columns in shared memory
+// (cp.async, an mbarrier) for a group of rows measured slower at the
+// solve's shapes and far slower at few rows (79 KB of slab cap an SM at
+// 2 blocks); it won only Love's K=90 sweep at 1,920 models.  The frozen
+// and refine kernels keep the models-first grid (ceil(B/128), K) and are
+// the next to redesign.  The ragged edge of B is masked, not padded.
+// The gradient kernel and the refinement's Newton tail run the lane code
+// on a dual number carrying d/dc and d/dT.  Built without FMA contraction
+// (see NVCC_FLAGS in ops/secular_lanes.py), each kernel is bitwise equal
+// to its plain PyTorch version on the card.
 //
 // C interface for ctypes: pointers and the stream are void*, each entry
 // point launches on the given stream, does not synchronise and returns
@@ -57,14 +67,16 @@ sl::Model make_model(const void* vp, const void* vs, const void* rho,
   return sl::Model{f(vp), f(vs), f(rho), f(qsi), f(hf), f(vf), f(rf), B, L};
 }
 
+// secular_lanes and secular_lanes_grad (rows_first): block (k, y) takes
+// row k of models y*kBlock .. y*kBlock + kBlock - 1
 template <bool kRayleigh>
 __global__ void __launch_bounds__(kBlock)
 secular_lanes_kernel(Lanes in, sl::Model m, const int* __restrict__ nlay,
                      float fact, float t_base, bool atten,
                      float* __restrict__ F, float* __restrict__ bhs,
                      int* __restrict__ mm) {
-  const int b = blockIdx.x * kBlock + threadIdx.x;
-  const int k = blockIdx.y;
+  const int b = blockIdx.y * kBlock + threadIdx.x;
+  const int k = blockIdx.x;
   if (b >= in.B) return;
   const int i = k * in.B + b;
   sl::lane_dynamic<kRayleigh>(m, b, in.c[i], in.t[i], in.tm[i], in.mmf[i],
@@ -89,8 +101,8 @@ __global__ void __launch_bounds__(kBlock)
 secular_grad_kernel(Lanes in, sl::Model m, float t_base, bool atten,
                     float* __restrict__ F, float* __restrict__ Fc,
                     float* __restrict__ Ft) {
-  const int b = blockIdx.x * kBlock + threadIdx.x;
-  const int k = blockIdx.y;
+  const int b = blockIdx.y * kBlock + threadIdx.x;
+  const int k = blockIdx.x;
   if (b >= in.B) return;
   const int i = k * in.B + b;
   sl::lane_grad<kRayleigh>(m, b, in.c[i], in.t[i], in.mmf[i], t_base, atten,
@@ -102,8 +114,7 @@ secular_grad_kernel(Lanes in, sl::Model m, float t_base, bool atten,
 // the halfspace row captured once.  Replaces the separate frozen (Illinois)
 // and gradient launches of the solver's refinement phase: the model column
 // is read from L2 by one launch instead of n_ill + 2 + n_newton.  Bound:
-// FP32/SFU throughput, as the kernels above (the extra state is a dozen
-// registers).
+// instruction issue at a quarter of the warps (127 registers, Rayleigh).
 template <bool kRayleigh>
 __global__ void __launch_bounds__(kBlock)
 refine_kernel(Lanes in, const float* __restrict__ hi, sl::Model m,
@@ -120,6 +131,7 @@ refine_kernel(Lanes in, const float* __restrict__ hi, sl::Model m,
 }
 
 dim3 grid_of(int K, int B) { return dim3((B + kBlock - 1) / kBlock, K); }
+dim3 rows_first(int K, int B) { return dim3(K, (B + kBlock - 1) / kBlock); }
 
 }  // namespace
 
@@ -139,12 +151,12 @@ int secular_lanes_launch(const void* c, const void* t, const void* tm,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0 && B > 0) {
     if (rayleigh) {
-      secular_lanes_kernel<true><<<grid_of(K, B), kBlock, 0, s>>>(
+      secular_lanes_kernel<true><<<rows_first(K, B), kBlock, 0, s>>>(
           in, m, static_cast<const int*>(nlay), fact, t_base, atten != 0,
           static_cast<float*>(F), static_cast<float*>(bhs),
           static_cast<int*>(mm));
     } else {
-      secular_lanes_kernel<false><<<grid_of(K, B), kBlock, 0, s>>>(
+      secular_lanes_kernel<false><<<rows_first(K, B), kBlock, 0, s>>>(
           in, m, static_cast<const int*>(nlay), fact, t_base, atten != 0,
           static_cast<float*>(F), static_cast<float*>(bhs),
           static_cast<int*>(mm));
@@ -188,11 +200,11 @@ int secular_lanes_grad_launch(const void* c, const void* t, const void* mmf,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K > 0 && B > 0) {
     if (rayleigh) {
-      secular_grad_kernel<true><<<grid_of(K, B), kBlock, 0, s>>>(
+      secular_grad_kernel<true><<<rows_first(K, B), kBlock, 0, s>>>(
           in, m, t_base, atten != 0, static_cast<float*>(F),
           static_cast<float*>(Fc), static_cast<float*>(Ft));
     } else {
-      secular_grad_kernel<false><<<grid_of(K, B), kBlock, 0, s>>>(
+      secular_grad_kernel<false><<<rows_first(K, B), kBlock, 0, s>>>(
           in, m, t_base, atten != 0, static_cast<float*>(F),
           static_cast<float*>(Fc), static_cast<float*>(Ft));
     }

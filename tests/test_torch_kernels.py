@@ -6,8 +6,13 @@ host, and (on a machine with an NVIDIA GPU) the kernels themselves.
 * The kernels' per-lane code (``csrc/secular_lane.cuh``) compiled with g++
   agrees with the plain versions at the kernel contract's tolerances
   (skips without g++), refine_lanes' Illinois + Newton body included.
+* The lane code takes every shape the kernels' launches give it: ragged
+  model counts (B=37, not a multiple of a 128-model block), K of 1, 5 and
+  13, dynamic and pinned closures, the value and the dual-number bodies;
+  and a lane's bits do not depend on the batch around it.
 * ``cuda``-marked tests run the CUDA kernels against the plain versions on
-  the card; they skip without one.
+  the card (secular_lanes and secular_lanes_grad bit for bit, at the
+  ragged shapes too); they skip without one.
 
 This file imports no JAX, so on a GPU machine without JAX it runs alone:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -41,6 +46,43 @@ PROBES = np.array([[3.0, 3.4, 4.1, 2.9], [3.2, 3.9, 4.4, 3.3],
 @pytest.fixture(scope="module")
 def eus():
     return load_eus_model()
+
+
+@pytest.fixture(scope="module")
+def ragged(eus):
+    """float32 inputs per wave at ragged shapes: B=37 models (36 jittered
+    eus models and one with a water layer on top), K=13 rows of c from 2.7
+    to 4.9 km/s over four periods (every regime of both wavenumbers), and
+    the pinned closures of a dynamic walk at c + 0.01 (the solver's)."""
+    h, vp, vs, rho, qsi, nlay = with_water_top(eus_batch(eus, B=36))
+    K, B = 13, h.shape[0]
+    c = torch.linspace(2.7, 4.9, K)[:, None].expand(K, B).contiguous()
+    t = torch.tensor(PERIODS)[torch.arange(K) % 4][:, None].expand(K, B)
+    t = t.contiguous()
+    out = {}
+    for wave in WAVES:
+        fac = flatten_factors(torch.tensor(h), torch.tensor(nlay),
+                              1 if wave == "love" else 2)
+        model = [torch.tensor(x).T.contiguous() for x in (vp, vs, rho, qsi)]
+        model += [x.T.contiguous() for x in fac]
+        nl = torch.tensor(nlay)
+        _, _, pin = tsl.secular_lanes_plain(
+            c + 0.01, t, torch.zeros(c.shape, dtype=torch.int32), *model, nl,
+            wave=wave)
+        out[wave] = (c, t, pin, model, nl)
+    return out
+
+
+def _rows(ragged, wave, K):
+    """The first K rows of the ragged inputs, spread over the 13."""
+    c, t, pin, model, nl = ragged[wave]
+    idx = torch.linspace(0, c.shape[0] - 1, K).round().long()
+    return (c[idx].contiguous(), t[idx].contiguous(), pin[idx].contiguous(),
+            model, nl)
+
+
+def _bits(xs):
+    return [x.view(torch.int32) for x in xs]
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +206,60 @@ def test_kernel_lane_code_on_host_matches_plain(host_lib, lanes, wave):
 
 
 @pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("K", [1, 5, 13])
+@pytest.mark.parametrize("kind", ["dynamic", "pinned", "grad"])
+def test_lane_code_on_host_ragged_shapes(host_lib, ragged, wave, K, kind):
+    """The kernels' lane code at the ragged shapes of their launches, held
+    to the plain versions as above (the host's libm and PyTorch's CPU
+    kernels round expf/sincosf differently, so not bit for bit)."""
+    c, t, pin, model, nl = _rows(ragged, wave, K)
+    if kind == "grad":
+        Gk = _host_call(host_lib, "grad", wave, c, t, pin, model, nl)
+        Gp = tsl.secular_lanes_grad_plain(c, t, pin, *model, nl, wave=wave)
+        _assert_F(Gk[0], Gp[0])
+        _assert_ratio(Gk, Gp)
+        return
+    mmf = torch.zeros_like(pin) if kind == "dynamic" else pin
+    Fk, bk, mk = _host_call(host_lib, "dynamic", wave, c, t, mmf, model, nl)
+    Fp, bp, mp = tsl.secular_lanes_plain(c, t, mmf, *model, nl, wave=wave)
+    assert torch.equal(mk, mp)
+    torch.testing.assert_close(bk, bp, rtol=1e-6, atol=0)
+    _assert_F(Fk, Fp)
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("kind", ["dynamic", "pinned", "frozen", "grad"])
+def test_host_lane_code_is_batch_invariant(host_lib, ragged, wave, kind):
+    """A lane's bits do not depend on the batch around it: the (13, 37)
+    batch equals each model alone (B=1) and each row alone (K=1), bit for
+    bit.  The kernels rely on it when they lay out the same lanes in
+    another grid order."""
+    c, t, pin, model, nl = ragged[wave]
+    K, B = c.shape
+    mmf = torch.zeros_like(pin) if kind == "dynamic" else pin
+    call = "dynamic" if kind in ("dynamic", "pinned") else kind
+
+    def run(rows, cols):
+        sub = lambda x: x[rows][:, cols].contiguous()  # noqa: E731
+        out = _host_call(host_lib, call, wave, sub(c), sub(t), sub(mmf),
+                         [m[:, cols].contiguous() for m in model],
+                         nl[cols].contiguous())
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    whole = run(slice(None), slice(None))
+    for b in range(B):
+        one = run(slice(None), slice(b, b + 1))
+        for x, y in zip(whole, one):
+            assert torch.equal(x[:, b:b + 1].view(torch.int32),
+                               y.view(torch.int32))
+    for k in range(K):
+        one = run(slice(k, k + 1), slice(None))
+        for x, y in zip(whole, one):
+            assert torch.equal(x[k:k + 1].view(torch.int32),
+                               y.view(torch.int32))
+
+
+@pytest.mark.parametrize("wave", WAVES)
 @pytest.mark.parametrize("n_newton", [0, 2])
 def test_refine_lane_code_on_host_matches_plain(host_lib, lanes, wave,
                                                 n_newton):
@@ -203,7 +299,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wave", WAVES)
-def test_cuda_kernels_match_plain(cuda_device, lanes, wave):
+def test_cuda_kernels_match_plain(cuda_device, lanes, ragged, wave):
     c, t, model, nlay = (x.to(cuda_device) if torch.is_tensor(x)
                          else [m.to(cuda_device) for m in x]
                          for x in lanes[wave])
@@ -238,6 +334,27 @@ def test_cuda_kernels_match_plain(cuda_device, lanes, wave):
     with pytest.raises(TypeError, match="float32"):
         tsl.secular_lanes(c.double(), t.double(), mm0,
                           *[m.double() for m in model], nlay)
+    # the two kernels of the redesigned launch, bit for bit at ragged
+    # shapes, and at the main shapes above
+    assert all(torch.equal(x, y)
+               for x, y in zip(_bits((Fk, bk)), _bits((Fp, bp))))
+    assert all(torch.equal(x, y) for x, y in zip(_bits(Gk), _bits(Gp)))
+    for K in (1, 5, 13):
+        rc, rt, pin, rmodel, rnl = (
+            x.to(cuda_device) if torch.is_tensor(x)
+            else [m.to(cuda_device) for m in x]
+            for x in _rows(ragged, wave, K))
+        for mmf in (torch.zeros_like(pin), pin):
+            k = tsl.secular_lanes(rc, rt, mmf, *rmodel, rnl, wave=wave)
+            p = tsl.secular_lanes(rc, rt, mmf, *rmodel, rnl, wave=wave,
+                                  backend="plain")
+            assert torch.equal(k[2], p[2])
+            assert all(torch.equal(x, y)
+                       for x, y in zip(_bits(k[:2]), _bits(p[:2])))
+        k = tsl.secular_lanes_grad(rc, rt, pin, *rmodel, rnl, wave=wave)
+        p = tsl.secular_lanes_grad(rc, rt, pin, *rmodel, rnl, wave=wave,
+                                   backend="plain")
+        assert all(torch.equal(x, y) for x, y in zip(_bits(k), _bits(p)))
 
 
 @pytest.mark.cuda
