@@ -8,7 +8,7 @@ Drives the port's two main paths through the entry points a user calls:
     L=88, built through the port's own model layer, 65,536 models
     (+-0.5% Vs/Vp jitter, seed 0), 18 periods, Rayleigh and Love, the
     MCMC sampler's warm re-solve, and the refinement in one
-    ``refine_lanes`` launch (``nnewton=2``, ``fuse_illinois``);
+    ``refine_lanes`` call (``nnewton=2``, ``fuse_illinois``);
   * the batched MCMC sampler ``invert_grid`` at the JAX package's
     flagship workload (bench.py:249-260): 64 PointCascadia points of the
     reference's example setting (examples/invert_point.py:21-51),
@@ -20,8 +20,9 @@ Phases, each of which raises on failure:
 
   1. card     the card's name and power limit (nvidia-smi) — no CPU
               fallback: without CUDA the script exits non-zero;
-  2. build    the four secular-lane kernels, built with nvcc from csrc/,
-              with each kernel's registers and spills from ptxas;
+  2. build    the four secular-lane kernels (refine_lanes as its two
+              phase kernels), built with nvcc from csrc/, with each
+              kernel's registers and spills from ptxas;
   3. kernels  each kernel against its plain PyTorch version on the card,
               at main-path lane shapes (K=33 cold sweep, K=18 refinement
               and tangents, B=4096): |dF| <= 1e-4 * max_k |F| per model
@@ -29,11 +30,12 @@ Phases, each of which raises on failure:
               >= 99.99% of lanes; refine_lanes on brackets from a sweep
               around each lane's root, n_newton 2 (with u) and 0 (the
               fuse_illinois form): |droot| <= 1e-4 km/s on >= 99.99% of
-              lanes, u within 1e-3 relative at q99; whether each kernel
-              is bitwise equal to its plain version is recorded, and
-              secular_lanes and secular_lanes_grad must be, there and at
-              ragged shapes (B=4095; K=1, 13 and 90; dynamic and pinned
-              closures);
+              lanes, u within 1e-3 relative at q99; every kernel must be
+              bitwise equal to its plain version, there and at ragged
+              shapes (B=4095; secular_lanes dynamic and pinned and
+              secular_lanes_grad at K=1, 13 and 90; secular_lanes_frozen
+              pinned and refine_lanes with n_newton 0, 1 and 2, u on and
+              off, at K=1, 13 and 18);
   4. slice    the solve for Rayleigh (bench config), Love (nbisect 6), a
               warm Rayleigh re-solve with the sampler's settings
               (newton_sep=3) seeded with the Rayleigh roots, and Rayleigh
@@ -57,9 +59,12 @@ Phases, each of which raises on failure:
   6. time     solves/s per run, each kernel's time beside its plain
               version's and its bound, and at the sampler's size (B=1,920,
               K=18; K=90 for secular_lanes, the fused warm sweep),
-              refine_lanes beside the separate frozen + gradient launches
-              it replaces (CUDA events for kernels, best of 3 windows
-              after a warm-up; host clock around synchronised solves).
+              refine_lanes with n_newton 2 beside the separate frozen +
+              gradient launches it replaces and with n_newton 0 beside the
+              separate Illinois frozen launches (CUDA events for kernels,
+              best of 3 windows after a warm-up, the plain versions one
+              call each; host clock around synchronised solves); the
+              seconds each phase took.
 
 Prints the card line and a JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``.  Run from the repository
@@ -156,12 +161,15 @@ FP32_OPS_PER_S = 67e12
 OPS_PER_LAYER = {"rayleigh": 182, "love": 41}
 WALK_OPS_PER_LAYER = {"rayleigh": 3, "love": 15}
 DUAL_FACTOR = 4
-# the kernels' symbols in the ptxas report, and the H100's register file
-# (65,536 a SM, allocated 256 a warp; at most 64 warps and 32 blocks a SM)
+# the kernels' symbols in the ptxas report (refine_lanes launches two, one
+# a phase), and the H100's register file (65,536 a SM, allocated 256 a
+# warp; at most 64 warps and 32 blocks a SM)
 PTXAS_NAMES = {"secular_lanes": "secular_lanes_kernel",
                "secular_lanes_frozen": "secular_frozen_kernel",
                "secular_lanes_grad": "secular_grad_kernel",
-               "refine_lanes": "refine_kernel"}
+               "refine_lanes_illinois": "refine_illinois_kernel",
+               "refine_lanes_newton": "refine_newton_kernel"}
+PHASES = {"refine_lanes": ("illinois", "newton")}
 BLOCK = 128
 
 
@@ -172,14 +180,15 @@ def bound(nbytes, ops):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def ptxas_usage(report):
+def ptxas_usage(report, names=PTXAS_NAMES):
     """{(kernel, wave): (registers, spill-store bytes)} from nvcc's
-    ``-Xptxas -v`` report (template argument true = Rayleigh)."""
+    ``-Xptxas -v`` report (template argument true = Rayleigh) for the
+    kernels ``names`` maps to their symbols."""
     usage, name, spill = {}, None, 0
     for line in report.splitlines():
         if "Compiling entry function" in line:
             name = None
-            for k, sym in PTXAS_NAMES.items():
+            for k, sym in names.items():
                 for flag, wave in (("ILb1", "rayleigh"), ("ILb0", "love")):
                     if sym + flag in line:
                         name = (k, wave)
@@ -313,7 +322,7 @@ def main():
         log(f"[build]  {name} {wave}: {regs} registers, {spill} bytes spill "
             f"stores, theoretical occupancy {occupancy(regs):.4f} "
             f"(blocks of {BLOCK})")
-    check(len(usage) == 2 * len(REPLACES),
+    check(len(usage) == 2 * len(PTXAS_NAMES),
           f"ptxas report lists {sorted(usage)}, not every kernel")
 
     # ---- model -------------------------------------------------------
@@ -338,6 +347,13 @@ def main():
         fac = flatten_factors(sub[0], nlb, 1 if wave == "love" else 2)
         return [x.T.contiguous() for x in (*sub[1:], *fac)]
 
+    phase_s = {}
+
+    def mark(phase):
+        """Seconds since the previous mark go to ``phase``."""
+        phase_s[phase] = time.perf_counter() - t_start - sum(phase_s.values())
+
+    mark("card+build")
     # ---- 3. kernels against their plain versions ---------------------
     kerr = {k: {"max_abs_err": 0.0} for k in REPLACES}
     bits = {k: {} for k in REPLACES}
@@ -387,7 +403,8 @@ def main():
         torch.cuda.synchronize()
         bits["secular_lanes_grad"][wave] = (bitwise(k3, p3)
                                             and bitwise(k3r, p3r))
-        for name in ("secular_lanes", "secular_lanes_grad"):
+        for name in ("secular_lanes", "secular_lanes_frozen",
+                     "secular_lanes_grad"):
             check(bits[name][wave], f"{wave} {name} is not bitwise equal to "
                   "its plain version")
         rk, rp = k3r[2] / k3r[1], p3r[2] / p3r[1]
@@ -425,6 +442,8 @@ def main():
             check(within >= 0.9999, f"{wave} refine_lanes n_newton="
                   f"{n_newton}: |droot| <= 1e-4 on {within:.6f} of lanes")
             same_bits = bitwise(kr, pr)
+            check(same_bits, f"{wave} refine_lanes n_newton={n_newton} is "
+                  "not bitwise equal to its plain version")
             uq = 0.0
             if group:
                 urel = ((kr[1] - pr[1]).abs()
@@ -446,8 +465,10 @@ def main():
                                           and same_bits)
         ragged_check(sl, [a[:B_LANES - 1] for a in arrs], nl[:B_LANES - 1],
                      root[:, :B_LANES - 1].contiguous(),
-                     tk[:, :B_LANES - 1].contiguous(), wave, lane_model, card)
+                     tk[:, :B_LANES - 1].contiguous(), wave, cfg.nbisect,
+                     lane_model, card)
 
+    mark("kernels")
     # ---- 4. the solve ------------------------------------------------
     sl.reset_launch_counts()
     out_r = surf_forward_batch(*arrs, periods, nl, wave="rayleigh",
@@ -528,8 +549,10 @@ def main():
 
     golden_check(surf_forward_batch, SurfConfig, dev, card)
 
+    mark("slice")
     # ---- 5. the sampler ----------------------------------------------
     launches_mc, mc = sampler_phase(sl, card)
+    mark("sampler")
 
     # ---- 6. time -----------------------------------------------------
     solves = {}
@@ -589,7 +612,9 @@ def main():
         model_bytes = 7 * L * B_SLICE * 4
         for name, fn in calls.items():
             ms = time_cuda(lambda: fn("kernel"), n=5)
-            pms = time_cuda(lambda: fn("plain"), n=1)
+            # one call of the plain version (0.2-11 s of host-bound
+            # PyTorch ops; a warm-up and more windows would add minutes)
+            pms = time_cuda(lambda: fn("plain"), n=1, windows=1, warm=0)
             K = 33 if name == "secular_lanes" else 18
             lanes_io = {"secular_lanes": 7, "secular_lanes_frozen": 4,
                         "secular_lanes_grad": 6, "refine_lanes": 6}[name]
@@ -620,15 +645,29 @@ def main():
 
         sep_ms = time_cuda(separate, n=3)
         kern[("separate_2_3", wave)] = sep_ms
-        log(f"[time] refine_lanes {wave} one launch {kern[('refine_lanes', wave)][0]:.3f} "
-            f"ms vs the separate launches it replaces ({n_ill + 2} "
-            f"secular_lanes_frozen + 2 secular_lanes_grad + glue) "
-            f"{sep_ms:.3f} ms ({card})")
+        log(f"[time] refine_lanes {wave} n_newton 2 (one call, two kernels) "
+            f"{kern[('refine_lanes', wave)][0]:.3f} ms vs the separate "
+            f"launches it replaces ({n_ill + 2} secular_lanes_frozen + 2 "
+            f"secular_lanes_grad + glue) {sep_ms:.3f} ms ({card})")
+        # the fuse_illinois form (n_newton 0: the Illinois kernel alone)
+        # against the Illinois frozen launches and glue it replaces
+        ill_ms = time_cuda(lambda: sl.refine_lanes(
+            lo, hi, tk, mmb, *model, nl, wave=wave, n_ill=n_ill, n_newton=0,
+            compute_group=False), n=5)
+        sep_ill_ms = time_cuda(lambda: _illinois(
+            lambda x: sl.secular_lanes_frozen(x, tk, mmb, *model, nl,
+                                              wave=wave), lo, hi, n_ill), n=3)
+        kern[("nnewton0", wave)] = (ill_ms, sep_ill_ms)
+        log(f"[time] refine_lanes {wave} n_newton 0 (the Illinois kernel) "
+            f"{ill_ms:.3f} ms vs the separate launches it replaces "
+            f"({n_ill + 2} secular_lanes_frozen + glue) {sep_ill_ms:.3f} ms "
+            f"({card})")
         sampler_size_times(sl, kern, [a[:B_SAMPLER] for a in arrs],
                            nl[:B_SAMPLER], root[:, :B_SAMPLER].contiguous(),
                            tk[:, :B_SAMPLER].contiguous(), wave, n_ill,
                            lane_model, card)
 
+    mark("time")
     kernels = []
     for name, rep in REPLACES.items():
         ms, pms, bms, bby = kern[(name, "rayleigh")]
@@ -638,11 +677,22 @@ def main():
             extra.update(separate_launches_ms=kern[("separate_2_3",
                                                     "rayleigh")],
                          love_separate_launches_ms=kern[("separate_2_3",
-                                                         "love")])
+                                                         "love")],
+                         nnewton0_ms={w: kern[("nnewton0", w)][0]
+                                      for w in waves},
+                         separate_illinois_ms={w: kern[("nnewton0", w)][1]
+                                               for w in waves})
         if name == "secular_lanes":
             extra.update(sampler_k90_ms={
                 w: kern[("secular_lanes_k90", w)] for w in waves})
-        regs = {w: usage[(name, w)][0] for w in waves}
+        def per(f, name=name):
+            """f of each wave's ptxas usage, by phase for a kernel
+            launched as several."""
+            if name in PHASES:
+                return {ph: {w: f(usage[(f"{name}_{ph}", w)]) for w in waves}
+                        for ph in PHASES[name]}
+            return {w: f(usage[(name, w)]) for w in waves}
+
         kernels.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=rep,
             launches=launches_solve[name] + launches_mc[name],
@@ -653,15 +703,17 @@ def main():
             launches_sampler_path=launches_mc[name],
             love_ms=lms, love_plain_ms=lpms, love_bound_ms=lbms,
             shape=f"K={33 if name == 'secular_lanes' else 18},B={B_SLICE},"
-                  f"L={L}", bitwise=bits[name], registers=regs,
-            spill_bytes={w: usage[(name, w)][1] for w in waves},
-            occupancy={w: occupancy(r) for w, r in regs.items()},
+                  f"L={L}", bitwise=bits[name],
+            registers=per(lambda u: u[0]), spill_bytes=per(lambda u: u[1]),
+            occupancy=per(lambda u: occupancy(u[0])),
             sampler_ms={w: kern[(name + "_sampler", w)] for w in waves},
             **extra))
 
     log(f"[time] summary ({card}): solves/s " + json.dumps(
         {k: round(v, 1) for k, v in solves.items()}) + "; sampler " +
-        json.dumps(mc) + f"; chip_smoke {time.perf_counter() - t_start:.1f} s")
+        json.dumps(mc) + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
+        " (by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
+        + ")")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -888,17 +940,40 @@ def sampler_size_times(sl, kern, sub, nlay, root, tk, wave, n_ill,
             f"B={root.shape[1]}: kernel {ms:.4f} ms ({card})")
 
 
-def ragged_check(sl, sub, nlay, root, tk, wave, lane_model, card):
-    """secular_lanes (dynamic and pinned closures) and secular_lanes_grad
-    bit for bit against their plain versions at ragged shapes: B not a
-    multiple of the kernels' 128-model blocks, K = 1, 13 (a re-scan) and
-    90 (the sampler's fused warm sweep), rows from that sweep."""
+def ragged_check(sl, sub, nlay, root, tk, wave, n_ill, lane_model, card):
+    """Every kernel bit for bit against its plain version at ragged
+    shapes: B not a multiple of the kernels' 128-model blocks;
+    secular_lanes (dynamic and pinned closures) and secular_lanes_grad at
+    K = 1, 13 (a re-scan) and 90 (the sampler's fused warm sweep), rows
+    from that sweep; secular_lanes_frozen (pinned) and refine_lanes
+    (n_newton 0, 1 and 2, u on and off, brackets from a sweep around each
+    root) at K = 1, 13 and 18 (a refinement)."""
     import torch
     model = lane_model(sub, nlay, wave)
     c90, t90 = warm_sweep(root, tk)
     _, _, pin90 = sl.secular_lanes(c90, t90, torch.zeros(c90.shape,
                                    dtype=torch.int32, device=c90.device),
                                    *model, nlay, wave=wave, backend="plain")
+    lo18, hi18, mm18 = sweep_brackets(sl, root, tk, model, nlay, wave)
+    for K in (1, 13, 18):
+        c, t, pin = (x[:K].contiguous() for x in (c90, t90, pin90))
+        same = bitwise(sl.secular_lanes_frozen(c, t, pin, *model, nlay,
+                                               wave=wave),
+                       sl.secular_lanes_frozen(c, t, pin, *model, nlay,
+                                               wave=wave, backend="plain"))
+        check(same, f"{wave} secular_lanes_frozen K={K} B={c.shape[1]} is "
+              "not bitwise equal to its plain version")
+        lo, hi, mm, t = (x[:K].contiguous() for x in (lo18, hi18, mm18, tk))
+        for n_newton in (0, 1, 2):
+            for group in (True, False):
+                kr, pr = (sl.refine_lanes(lo, hi, t, mm, *model, nlay,
+                                          wave=wave, n_ill=n_ill,
+                                          n_newton=n_newton,
+                                          compute_group=group, backend=b)
+                          for b in ("auto", "plain"))
+                check(bitwise(kr, pr), f"{wave} refine_lanes K={K} "
+                      f"B={c.shape[1]} n_newton={n_newton} compute_group="
+                      f"{group} is not bitwise equal to its plain version")
     shapes = []
     for K in (1, 13, 90):
         c, t, pin = (x[:K].contiguous() for x in (c90, t90, pin90))
@@ -919,7 +994,10 @@ def ragged_check(sl, sub, nlay, root, tk, wave, lane_model, card):
         shapes.append(f"K={K}")
     log(f"[kernels] {wave}: ragged B={c90.shape[1]} "
         f"{', '.join(shapes)}: secular_lanes (dynamic and pinned) and "
-        f"secular_lanes_grad bitwise equal to their plain versions ({card})")
+        f"secular_lanes_grad bitwise equal to their plain versions; K=1, 13,"
+        f" 18: secular_lanes_frozen (pinned) and refine_lanes (n_ill "
+        f"{n_ill}, n_newton 0, 1, 2, u on and off) bitwise equal too "
+        f"({card})")
 
 
 def compare_F(Fk, Fp, mask, what):

@@ -1,11 +1,13 @@
-// Per-lane secular-function arithmetic shared by the four CUDA kernels
-// of secular_lanes.cu (and by any host build of this header).
+// Per-lane secular-function arithmetic shared by the CUDA kernels of
+// secular_lanes.cu (and by any host build of this header).
 //
 // One lane is one (trial phase velocity c, period T, model b) triple.
 // Everything here is written once, templated on a scalar type S:
-//   S = float  : the value kernels (secular_lanes, secular_lanes_frozen);
+//   S = float  : the value kernels (secular_lanes, secular_lanes_frozen,
+//                the Illinois phase of refine_lanes);
 //   S = Dual2  : a float with two tangent slots, d/dc and d/dT, for the
-//                gradient kernel (secular_lanes_grad).  The JAX package
+//                gradient kernel (secular_lanes_grad) and the Newton phase
+//                of refine_lanes.  The JAX package
 //                got these tangents from jax.linearize of _ray_prop,
 //                _ray_closure, _love_prop and _love_init
 //                (pysurfinv_tpu/ops/pallas_secular.py:122-239); here the
@@ -512,10 +514,9 @@ SL_HD void lane_dynamic(const Model& m, int col, float c, float t, float tm,
   *mm = tr.mm;
 }
 
-// F at the pinned closure layer mmf (>= 2) with the halfspace ``hs_of()``:
-// captured once by the refinement, which evaluates one lane many times,
-// and read where the closure needs it otherwise (Rayleigh: after the
-// propagation, so that it holds no registers through it).
+// F at the pinned closure layer mmf (>= 2) with the halfspace ``hs_of()``,
+// read where the closure needs it (Rayleigh: after the propagation, so
+// that it holds no registers through it).
 template <bool kRayleigh, class S, class Hs>
 SL_HD S frozen_at(const Model& m, int col, const S& c, const S& t, float lnt,
                   bool atten, int mmf, const Hs& hs_of) {
@@ -560,7 +561,7 @@ SL_HD void lane_grad(const Model& m, int col, float c, float t, int mmf,
 }
 
 // ---------------------------------------------------------------------------
-// refine_lanes: bracket -> root -> group velocity in one pass per lane
+// refine_lanes: bracket -> root -> group velocity per lane, in two phases
 // (_refine_kernel, pallas_secular.py:906-1024)
 // ---------------------------------------------------------------------------
 
@@ -575,67 +576,149 @@ SL_HD float nan_min(float a, float b) {
   return (a != a || b != b) ? a + b : (a < b ? a : b);
 }
 
-// ``n_ill + 2`` Illinois iterations on [lo, hi] (the first two evaluate
-// the ends), then ``n_newton`` bracket-clamped Newton steps whose last
-// one only evaluates, u = c / (1 - (T/c) F_T/F_c) from that evaluation's
-// tangents.  Every state update is the plain version's select, in its
-// order (refine_lanes_plain in ops/secular_lanes.py).
+// What the Illinois phase hands to the Newton phase: the live bracket,
+// the clipped estimate and sgn(F(lo)), which are all the Newton steps
+// read of the Illinois state (16 bytes a lane).
+struct RefineState {
+  float lo, hi, x, slo;
+};
+
+// The state each phase carries from one evaluation to the next, kept in
+// memory the caller gives (the kernels: volatile shared memory, which the
+// compiler neither caches in registers nor forwards) and read back only
+// after the evaluation, so that it holds no registers through the
+// evaluation's layer loop.  The closure layer is read back before each
+// evaluation: what follows from it alone (the halfspace and its part of
+// the closure) is then computed inside the evaluation, as in the frozen
+// and gradient kernels, and not hoisted out of the phase's loop to hold
+// registers through every evaluation.
+struct IllinoisKeep {
+  float lo, hi, flo, fhi, side;
+  int mmf;
+};
+struct NewtonKeep {
+  float lo, hi, slo, u;
+  int mmf;
+};
+
+// The Illinois phase: ``n_ill + 2`` iterations on [lo, hi] (the first two
+// evaluate the ends), then the clipped regula-falsi estimate, with one
+// evaluation site.  Every state update is the plain version's select, in
+// its order (refine_lanes_plain in ops/secular_lanes.py).  The halfspace
+// is read where each evaluation's closure needs it, as in
+// secular_lanes_frozen.
+template <bool kRayleigh, class Keep>
+SL_HD RefineState lane_refine_illinois(const Model& m, int col, float lo,
+                                       float hi, float t, int mmf,
+                                       float t_base, bool atten, int n_ill,
+                                       Keep* keep) {
+  const float lnt = lnt_of(t_base, t, atten);
+  keep->mmf = mmf;
+  keep->lo = lo;
+  keep->hi = hi;
+  keep->flo = 0.f;
+  keep->fhi = 0.f;
+  keep->side = 0.f;
+  for (int j = 0; j < n_ill + 2; ++j) {
+    float x;
+    if (j < 2) {
+      x = j == 0 ? keep->lo : keep->hi;
+    } else {
+      const float lo = keep->lo, hi = keep->hi;
+      const float flo = keep->flo, fhi = keep->fhi;
+      float denom = fhi - flo;
+      denom = fabsf(denom) > 0.f ? denom : 1.f;
+      const float x_int = (lo * fhi - hi * flo) / denom;
+      const bool bad = !(x_int > lo && x_int < hi);
+      x = bad ? 0.5f * (lo + hi) : x_int;
+    }
+    const int mm = keep->mmf;
+    const float fx = frozen_at<kRayleigh>(m, col, x, t, lnt, atten, mm, [&] {
+      return frozen_halfspace(m, col, lnt, atten, mm);
+    });
+    if (j == 0) {
+      keep->flo = fx;
+      continue;
+    }
+    if (j == 1) {
+      keep->fhi = fx;
+      continue;
+    }
+    const float flo = keep->flo, fhi = keep->fhi, side = keep->side;
+    const bool same_lo = sgn(fx) == sgn(flo);
+    float nflo = same_lo ? fx : flo;
+    float nfhi = same_lo ? fhi : fx;
+    if (same_lo && side == -1.f) nfhi = 0.5f * nfhi;
+    if (!same_lo && side == 1.f) nflo = 0.5f * nflo;
+    keep->side = same_lo ? -1.f : 1.f;
+    if (same_lo) {
+      keep->lo = x;
+    } else {
+      keep->hi = x;
+    }
+    keep->flo = nflo;
+    keep->fhi = nfhi;
+  }
+  const float lo_f = keep->lo, hi_f = keep->hi;
+  const float flo = keep->flo, fhi = keep->fhi;
+  float denom = fhi - flo;
+  denom = fabsf(denom) > 0.f ? denom : 1.f;
+  const float x =
+      nan_min(nan_max((lo_f * fhi - hi_f * flo) / denom, lo_f), hi_f);
+  return RefineState{lo_f, hi_f, x, sgn(flo)};
+}
+
+// The Newton phase: ``n_newton`` bracket-clamped Newton steps from the
+// Illinois estimate, the last of which only evaluates; u = c / (1 - (T/c)
+// F_T/F_c) from that evaluation's tangents (0 without ``compute_group``
+// or Newton steps).
+template <bool kRayleigh, class Keep>
+SL_HD void lane_refine_newton(const Model& m, int col, RefineState s,
+                              float t, int mmf, float t_base, bool atten,
+                              int n_newton, bool compute_group, Keep* keep,
+                              float* root, float* u) {
+  const float lnt = lnt_of(t_base, t, atten);
+  keep->mmf = mmf;
+  keep->lo = s.lo;
+  keep->hi = s.hi;
+  keep->slo = s.slo;
+  keep->u = 0.f;
+  float x = s.x;
+  for (int j = 0; j < n_newton; ++j) {
+    const int mm = keep->mmf;
+    const Dual2 g = grad_at<kRayleigh>(m, col, x, t, lnt, atten, mm, [&] {
+      return frozen_halfspace(m, col, lnt, atten, mm);
+    });
+    const bool same_lo = sgn(g.v) == keep->slo;
+    const float lo = same_lo ? x : keep->lo;
+    const float hi = same_lo ? keep->hi : x;
+    keep->lo = lo;
+    keep->hi = hi;
+    const float fc_safe = fabsf(g.dc) > 0.f ? g.dc : 1.f;
+    float xn = x - g.v / fc_safe;
+    const bool bad = !(xn > lo && xn < hi);
+    xn = bad ? 0.5f * (lo + hi) : xn;
+    if (compute_group) keep->u = x / (1.f - (t / x) * (g.dt / fc_safe));
+    x = j < n_newton - 1 ? xn : x;
+  }
+  *root = x;
+  *u = keep->u;
+}
+
+// The whole refinement of one lane: the two phases in a row (the host
+// build's reference for the two-kernel launch).
 template <bool kRayleigh>
 SL_HD void lane_refine(const Model& m, int col, float lo, float hi, float t,
                        int mmf, float t_base, bool atten, int n_ill,
                        int n_newton, bool compute_group, float* root,
                        float* u) {
-  const float lnt = lnt_of(t_base, t, atten);
-  const Layer hs = frozen_halfspace(m, col, lnt, atten, mmf);
-  const auto hs_of = [&hs] { return hs; };
-  float flo = 0.f, fhi = 0.f, side = 0.f;
-  for (int j = 0; j < n_ill + 2; ++j) {
-    if (j == 0) {
-      flo = frozen_at<kRayleigh>(m, col, lo, t, lnt, atten, mmf, hs_of);
-      continue;
-    }
-    if (j == 1) {
-      fhi = frozen_at<kRayleigh>(m, col, hi, t, lnt, atten, mmf, hs_of);
-      continue;
-    }
-    float denom = fhi - flo;
-    denom = fabsf(denom) > 0.f ? denom : 1.f;
-    const float x_int = (lo * fhi - hi * flo) / denom;
-    const bool bad = !(x_int > lo && x_int < hi);
-    const float x = bad ? 0.5f * (lo + hi) : x_int;
-    const float fx = frozen_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs_of);
-    const bool same_lo = sgn(fx) == sgn(flo);
-    const float nlo = same_lo ? x : lo;
-    float nflo = same_lo ? fx : flo;
-    const float nhi = same_lo ? hi : x;
-    float nfhi = same_lo ? fhi : fx;
-    if (same_lo && side == -1.f) nfhi = 0.5f * nfhi;
-    if (!same_lo && side == 1.f) nflo = 0.5f * nflo;
-    side = same_lo ? -1.f : 1.f;
-    lo = nlo;
-    hi = nhi;
-    flo = nflo;
-    fhi = nfhi;
-  }
-  float denom = fhi - flo;
-  denom = fabsf(denom) > 0.f ? denom : 1.f;
-  float x = nan_min(nan_max((lo * fhi - hi * flo) / denom, lo), hi);
-  float uu = 0.f;
-  const float slo = sgn(flo);
-  for (int j = 0; j < n_newton; ++j) {
-    const Dual2 g = grad_at<kRayleigh>(m, col, x, t, lnt, atten, mmf, hs_of);
-    const bool same_lo = sgn(g.v) == slo;
-    lo = same_lo ? x : lo;
-    hi = same_lo ? hi : x;
-    const float fc_safe = fabsf(g.dc) > 0.f ? g.dc : 1.f;
-    float xn = x - g.v / fc_safe;
-    const bool bad = !(xn > lo && xn < hi);
-    xn = bad ? 0.5f * (lo + hi) : xn;
-    if (compute_group) uu = x / (1.f - (t / x) * (g.dt / fc_safe));
-    x = j < n_newton - 1 ? xn : x;
-  }
-  *root = x;
-  *u = uu;
+  IllinoisKeep ik;
+  NewtonKeep nk;
+  lane_refine_newton<kRayleigh>(
+      m, col,
+      lane_refine_illinois<kRayleigh>(m, col, lo, hi, t, mmf, t_base, atten,
+                                      n_ill, &ik),
+      t, mmf, t_base, atten, n_newton, compute_group, &nk, root, u);
 }
 
 }  // namespace sl

@@ -16,7 +16,8 @@ per-lane arithmetic in ``csrc/secular_lane.cuh``):
                               ``_love_grad_kernel``): (F, dF/dc, dF/dT)
   ``refine_lanes``            ``refine_lanes`` (``_refine_kernel``):
                               Illinois + clamped Newton + group velocity,
-                              one launch per refinement
+                              one call per refinement (a float Illinois
+                              kernel and a dual-number Newton kernel)
   ==========================  =============================================
 
 Lane contract (shared by all four): lanes are (K, B) — K trial c or
@@ -596,7 +597,7 @@ def kernel_library():
     lib.secular_lanes_grad_launch.argtypes = (
         [P, P, P] + model + [P, P, P, I, I, I, I, F, I, P])
     lib.refine_lanes_launch.argtypes = (
-        [P, P, P, P] + model + [P, P, I, I, I, I, F, I, I, I, I, P])
+        [P, P, P, P] + model + [P, P, P, I, I, I, I, F, I, I, I, I, P])
     for fn in (lib.secular_lanes_launch, lib.secular_lanes_frozen_launch,
                lib.secular_lanes_grad_launch, lib.refine_lanes_launch):
         fn.restype = ctypes.c_int
@@ -766,13 +767,16 @@ def secular_lanes_grad(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
 def refine_lanes(lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
                  rho_fac, nlay, wave="rayleigh", t_base=1.0, atten=True,
                  n_ill=6, n_newton=2, compute_group=True, backend="auto"):
-    """Refine (K, B) brackets to roots + group velocities, one launch.
+    """Refine (K, B) brackets to roots + group velocities in one call.
 
     Args mirror :func:`secular_lanes_frozen`; ``lo``/``hi`` bound each
     lane's root (a sign change inside is the caller's contract — lanes
     without one converge somewhere inside and are masked by the caller's
     ``ok``).  Returns ``(root, u)``; ``u`` is zeros when
-    ``compute_group`` is False or ``n_newton`` is 0.
+    ``compute_group`` is False or ``n_newton`` is 0.  On the card the
+    call runs the Illinois phase and, for ``n_newton`` > 0, the Newton
+    phase as two kernels back to back, handing 16 bytes a lane over in
+    a scratch buffer; it counts as one launch.
     """
     args = (lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac, rho_fac,
             nlay)
@@ -788,8 +792,13 @@ def refine_lanes(lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
     lib, _ = kernel_library()
     root = torch.empty_like(lo)
     u = torch.empty_like(lo)
+    # the Illinois phase's hand-over to the Newton phase: (lo, hi, x,
+    # sgn F(lo)) a lane
+    state = (torch.empty((K, B, 4), dtype=lo.dtype, device=lo.device)
+             if n_newton > 0 else None)
     err = lib.refine_lanes_launch(
-        *_ptrs(lo, hi, t, mm_frozen, *model, root, u), K, B, L,
+        *_ptrs(lo, hi, t, mm_frozen, *model, root, u),
+        None if state is None else state.data_ptr(), K, B, L,
         int(_is_rayleigh(wave)), float(t_base), int(atten), int(n_ill),
         int(n_newton), int(compute_group),
         torch.cuda.current_stream(lo.device).cuda_stream)

@@ -8,20 +8,31 @@ measured in turns (base, this, this, base) in one process.
 
 Both libraries are built with the package's own nvcc flags and swapped
 in under the package's wrappers, so every call runs the same PyTorch
-code around a different kernel library.  On ``chip_smoke.py``'s bench
-model (86 layers, L=88, +-0.5% jitter, seed 0) it prints, one line
-each, with both designs' numbers:
+code around a different kernel library (a base whose ``refine_lanes``
+is one kernel takes no hand-over buffer: its entry point is called with
+its own arguments).  On ``chip_smoke.py``'s bench model (86 layers,
+L=88, +-0.5% jitter, seed 0) it prints, one line each, with both
+designs' numbers:
 
   [build]   registers and spill bytes (ptxas) and the static SASS
             instructions of each kernel's longest loop (cuobjdump);
   [kscale]  secular_lanes at B=65,536 and B=8,192 (the model in L2) for
-            K=1, 4 and 33, and secular_lanes_grad at K=18: ms and ps per
-            applied lane-layer (mm - 1 layers a lane);
+            K=1, 4 and 33, and at K=18 with the closure pinned at the
+            frozen kernel's layer; secular_lanes_frozen and
+            secular_lanes_grad at K=18; refine_lanes (n_ill 8 / 6) with
+            n_newton 0 and 2 at B=65,536: ms and ps per applied
+            lane-layer (mm - 1 layers a lane; for refine_lanes per
+            lane-layer of each evaluation, a dual one counted as one);
   [kernel]  the four kernels at the solve's shapes (B=65,536; K=33 sweep,
-            K=18) and the sampler's (B=1,920; K=18, K=90 warm sweep);
+            K=18) and the sampler's (B=1,920; K=18, K=90 warm sweep),
+            refine_lanes with n_newton 2 and 0, and the separate launches
+            each form replaces (Illinois frozen launches, + 2 gradient
+            launches, with the tensor ops between them);
   [bitwise] each kernel of both designs against its plain version at the
-            sampler's shapes;
-  [solve]   solves/s of chip_smoke's Rayleigh, Love and warm sampler runs;
+            sampler's shapes, and each solve's (c, u, ok) of the two
+            designs against each other;
+  [solve]   solves/s of chip_smoke's Rayleigh, Love, warm sampler,
+            nnewton=2 and fuse_illinois runs;
   [sampler] invert_grid at the flagship workload (effective solves/s) and
             the secular kernels' device ms in a profiled 6-row run
             (``--no-sampler`` skips both).
@@ -39,9 +50,17 @@ import sys
 import tempfile
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORDER = ("base", "this", "this", "base")
+ENTRY_POINTS = ("secular_lanes_launch", "secular_lanes_frozen_launch",
+                "secular_lanes_grad_launch", "refine_lanes_launch")
+# kernels of earlier designs, for the build report: refine_lanes as one
+# kernel
+OLD_SYMBOLS = {"refine_lanes": "refine_kernel"}
+# refine_lanes_launch's arguments before the hand-over buffer
+REFINE_STATE_AT = 13
 
 
 def log(*a):
@@ -58,6 +77,26 @@ def build_base(sl, csrc, out_dir):
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {csrc}:\n{res.stderr}")
     return so, res.stdout + res.stderr
+
+
+def base_library(so, report, lib_this):
+    """The base library's entry points with this package's argument
+    types; a one-kernel refine_lanes (no ``refine_illinois_kernel`` in
+    its report) is called without the hand-over buffer."""
+    lib = ctypes.CDLL(so)
+    fns = {}
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = getattr(lib_this, name).argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    if "refine_illinois_kernel" not in report:
+        old = lib.refine_lanes_launch
+        types = list(lib_this.refine_lanes_launch.argtypes)
+        old.argtypes = types[:REFINE_STATE_AT] + types[REFINE_STATE_AT + 1:]
+        fns["refine_lanes_launch"] = lambda *a: old(
+            *a[:REFINE_STATE_AT], *a[REFINE_STATE_AT + 1:])
+    return SimpleNamespace(**fns)
 
 
 def loop_sizes(sl, symbols, so):
@@ -100,7 +139,8 @@ def main():
     import chip_smoke as cs
     from pysurfinv_tpu_torch.convert import model_batch_from_numpy
     from pysurfinv_tpu_torch.ops import secular_lanes as sl
-    from pysurfinv_tpu_torch.ops.dispersion import (SurfConfig, _initial_c,
+    from pysurfinv_tpu_torch.ops.dispersion import (SurfConfig, _illinois,
+                                                    _initial_c,
                                                     surf_forward_batch)
     from pysurfinv_tpu_torch.ops.flatten import flatten_factors
 
@@ -110,12 +150,8 @@ def main():
     so_base, report_base = build_base(
         sl, os.path.abspath(args.base_csrc),
         tempfile.mkdtemp(prefix="ab_kernels_base_"))
-    lib_base = ctypes.CDLL(so_base)
-    for fn in ("secular_lanes_launch", "secular_lanes_frozen_launch",
-               "secular_lanes_grad_launch", "refine_lanes_launch"):
-        getattr(lib_base, fn).argtypes = getattr(lib_this, fn).argtypes
-        getattr(lib_base, fn).restype = ctypes.c_int
-    libs = {"base": lib_base, "this": lib_this}
+    libs = {"base": base_library(so_base, report_base, lib_this),
+            "this": lib_this}
     own = sl.kernel_library
 
     def use(v):
@@ -123,14 +159,16 @@ def main():
 
     res = {"card": card, "build": {}, "kscale": {}, "kernel": {},
            "bitwise": {}, "solve": {}, "sampler": {}}
+    symbols = dict(cs.PTXAS_NAMES, **OLD_SYMBOLS)
     for v, report, so in (("base", report_base, so_base),
                           ("this", info["log"], info["path"])):
-        loops = loop_sizes(sl, cs.PTXAS_NAMES, so)
+        loops = loop_sizes(sl, symbols, so)
         res["build"][v] = {
             f"{k} {w}": dict(registers=r, spill_bytes=s,
                              loop_sass=loops.get((k, w)))
-            for (k, w), (r, s) in sorted(cs.ptxas_usage(report).items())}
-    for key in res["build"]["this"]:
+            for (k, w), (r, s) in sorted(cs.ptxas_usage(report,
+                                                        symbols).items())}
+    for key in sorted(set(res["build"]["base"]) | set(res["build"]["this"])):
         log(f"[build] {key}: " + "; ".join(
             f"{v} {res['build'][v].get(key)}" for v in ("base", "this")))
 
@@ -157,6 +195,7 @@ def main():
     # name -> (call taking a backend, applied lane-layers or None)
     kscale, kernel = {}, {}
     for wave, cfg in cfgs.items():
+        n_ill = cfg.nbisect
         for B in (cs.B_SLICE, 8192, cs.B_SAMPLER):
             sub = [a[:B] for a in arrs]
             nlb = nl[:B].contiguous()
@@ -168,13 +207,17 @@ def main():
             _, _, mm = sl.secular_lanes(root + cs.DC, tk, zero(root), *m,
                                         nlb, wave=wave)
 
-            def dyn(c, t, m=m, nlb=nlb, wave=wave):
-                return lambda b: sl.secular_lanes(c, t, zero(c), *m, nlb,
-                                                  wave=wave, backend=b)
+            def dyn(c, t, mmf=None, m=m, nlb=nlb, wave=wave):
+                return lambda b: sl.secular_lanes(
+                    c, t, zero(c) if mmf is None else mmf, *m, nlb,
+                    wave=wave, backend=b)
 
             grad = (lambda b, root=root, tk=tk, mm=mm, m=m, nlb=nlb,
                     wave=wave: sl.secular_lanes_grad(
                         root, tk, mm, *m, nlb, wave=wave, backend=b))
+            frozen = (lambda b, root=root, tk=tk, mm=mm, m=m, nlb=nlb,
+                      wave=wave: sl.secular_lanes_frozen(
+                          root, tk, mm, *m, nlb, wave=wave, backend=b))
             if B != cs.B_SAMPLER:
                 c0 = _initial_c(sub[0], sub[2], sub[4], nlb,
                                 periods[0].expand(B), wave, cfg)
@@ -189,33 +232,66 @@ def main():
                                                 wave=wave)
                     kscale[f"secular_lanes {wave} B={B} K={K}"] = (
                         dyn(c, t), cs.layers_applied(mk, L))
+                # the frozen kernel's lanes, and the same lanes through
+                # the walk with the closure pinned there (the same layers)
+                applied = cs.layers_applied(mm, L)
+                kscale[f"secular_lanes pinned {wave} B={B} K=18"] = (
+                    dyn(root, tk, mm), applied)
+                kscale[f"secular_lanes_frozen {wave} B={B} K=18"] = (
+                    frozen, applied)
                 kscale[f"secular_lanes_grad {wave} B={B} K=18"] = (
-                    grad, cs.layers_applied(mm, L))
+                    grad, applied)
             if B == 8192:
                 continue
             lo, hi, mmb = cs.sweep_brackets(sl, root, tk, m, nlb, wave)
+
+            def refine(n_newton, lo=lo, hi=hi, tk=tk, mmb=mmb, m=m, nlb=nlb,
+                       wave=wave, n_ill=n_ill):
+                return lambda b: sl.refine_lanes(
+                    lo, hi, tk, mmb, *m, nlb, wave=wave, n_ill=n_ill,
+                    n_newton=n_newton, compute_group=n_newton > 0,
+                    backend=b)
+
+            def separate(n_newton, lo=lo, hi=hi, tk=tk, mmb=mmb, m=m,
+                         nlb=nlb, wave=wave, n_ill=n_ill):
+                # the launches a refine_lanes call replaces: the Illinois
+                # frozen launches, then n_newton gradient launches
+                def run(b):
+                    r = _illinois(lambda x: sl.secular_lanes_frozen(
+                        x, tk, mmb, *m, nlb, wave=wave, backend=b), lo, hi,
+                        n_ill)
+                    for _ in range(n_newton):
+                        f, fc, _ = sl.secular_lanes_grad(
+                            r, tk, mmb, *m, nlb, wave=wave, backend=b)
+                        r = torch.minimum(torch.maximum(r - f / fc, lo), hi)
+                    return r
+                return run
+
             if B == cs.B_SLICE:
                 kernel[f"secular_lanes {wave} B={B} K=33"] = \
                     kscale[f"secular_lanes {wave} B={B} K=33"]
+                applied = cs.layers_applied(mmb, L)
+                for n_newton in (0, 2):
+                    kscale[f"refine_lanes n_newton={n_newton} {wave} B={B} "
+                           f"K=18"] = (refine(n_newton),
+                                       applied * (n_ill + 2 + n_newton))
             else:
                 c90, t90 = cs.warm_sweep(root, tk)
                 kernel[f"secular_lanes {wave} B={B} K=18"] = (dyn(root, tk),
                                                               None)
                 kernel[f"secular_lanes {wave} B={B} K=90"] = (dyn(c90, t90),
                                                               None)
-            kernel[f"secular_lanes_frozen {wave} B={B} K=18"] = (
-                lambda b, root=root, tk=tk, mm=mm, m=m, nlb=nlb, wave=wave:
-                sl.secular_lanes_frozen(root, tk, mm, *m, nlb, wave=wave,
-                                        backend=b), None)
+            kernel[f"secular_lanes_frozen {wave} B={B} K=18"] = (frozen,
+                                                                 None)
             kernel[f"secular_lanes_grad {wave} B={B} K=18"] = (grad, None)
-            kernel[f"refine_lanes {wave} B={B} K=18"] = (
-                lambda b, lo=lo, hi=hi, tk=tk, mmb=mmb, m=m, nlb=nlb,
-                wave=wave, n=cfg.nbisect: sl.refine_lanes(
-                    lo, hi, tk, mmb, *m, nlb, wave=wave, n_ill=n,
-                    n_newton=2, backend=b), None)
+            for n_newton in (2, 0):
+                kernel[f"refine_lanes n_newton={n_newton} {wave} B={B} "
+                       f"K=18"] = (refine(n_newton), None)
+                kernel[f"separate launches n_newton={n_newton} {wave} "
+                       f"B={B} K=18"] = (separate(n_newton), None)
 
     for name, (fn, _) in kernel.items():
-        if f"B={cs.B_SAMPLER} " not in name + " ":
+        if f"B={cs.B_SAMPLER} " not in name + " " or name.startswith("sep"):
             continue
         ref = fn("plain")
         for v in ("base", "this"):
@@ -230,6 +306,8 @@ def main():
             use(v)
             for name, (fn, _) in cases.items():
                 n = 5 if f"B={cs.B_SLICE}" in name else 10
+                if name.startswith(("refine", "separate")):
+                    n = 3 if f"B={cs.B_SLICE}" in name else 5
                 res[section].setdefault(name, {}).setdefault(v, []).append(
                     cs.time_cuda(lambda: fn("kernel"), n=n))
         for name, (_, applied) in cases.items():
@@ -244,15 +322,27 @@ def main():
     runs = {"rayleigh": (cfg_r, "rayleigh", None),
             "love": (cfg_l, "love", None),
             "rayleigh_warm_sampler": (cfg_s, "rayleigh",
-                                      out["rayleigh"][0][:, :, 0])}
+                                      out["rayleigh"][0][:, :, 0]),
+            "rayleigh_nnewton2": (replace(cfg_r, nnewton=2), "rayleigh",
+                                  None),
+            "rayleigh_fuse_illinois": (replace(cfg_r, fuse_illinois=True),
+                                       "rayleigh", None)}
+    first = {}
     for v in ORDER:
         use(v)
         for name, (cfg, wave, cw) in runs.items():
             def solve(cfg=cfg, wave=wave, cw=cw):
                 return surf_forward_batch(*arrs, periods, nl, wave=wave,
                                           cfg=cfg, c_warm=cw)
-            solve()
+            got = solve()
             torch.cuda.synchronize()
+            if name not in first:
+                first[name] = got
+            else:
+                # (c, u, ok) of both designs, bit for bit
+                res["bitwise"].setdefault(f"solve {name}", []).append(
+                    cs.bitwise(first[name][:2], got[:2])
+                    and torch.equal(first[name][2], got[2]))
             best = float("inf")
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -265,7 +355,8 @@ def main():
     for name, d in res["solve"].items():
         log(f"[solve] {name} solves/s: " + "; ".join(
             f"{v} " + " ".join(f"{x:.1f}" for x in d[v])
-            for v in ("base", "this")))
+            for v in ("base", "this")) + "; (c, u, ok) bitwise equal to the "
+            f"first run (base): {res['bitwise'][f'solve {name}']}")
 
     if not args.no_sampler:
         from torch.profiler import ProfilerActivity, profile

@@ -96,4 +96,55 @@ void refine_lanes_host(const float* lo, const float* hi, const float* t,
   }
 }
 
+// The two phases of refine_lanes' launch, the hand-over going through
+// memory as on the card: ``state`` is (K, B, 4) float (lo, hi, x, slo).
+void refine_illinois_host(const float* lo, const float* hi, const float* t,
+                          const int* mmf, const float* vp, const float* vs,
+                          const float* rho, const float* qsi, const float* hf,
+                          const float* vf, const float* rf, float* state,
+                          int K, int B, int L, int rayleigh, float t_base,
+                          int atten, int n_ill) {
+  const sl::Model m = model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  for (int i = 0; i < K * B; ++i) {
+    const int b = i % B;
+    sl::IllinoisKeep keep;
+    const sl::RefineState s =
+        rayleigh ? sl::lane_refine_illinois<true>(m, b, lo[i], hi[i], t[i],
+                                                  mmf[i], t_base, atten != 0,
+                                                  n_ill, &keep)
+                 : sl::lane_refine_illinois<false>(m, b, lo[i], hi[i], t[i],
+                                                   mmf[i], t_base, atten != 0,
+                                                   n_ill, &keep);
+    float* out = state + 4 * i;
+    out[0] = s.lo;
+    out[1] = s.hi;
+    out[2] = s.x;
+    out[3] = s.slo;
+  }
+}
+
+void refine_newton_host(const float* state, const float* t, const int* mmf,
+                        const float* vp, const float* vs, const float* rho,
+                        const float* qsi, const float* hf, const float* vf,
+                        const float* rf, float* root, float* u, int K, int B,
+                        int L, int rayleigh, float t_base, int atten,
+                        int n_newton, int compute_group) {
+  const sl::Model m = model(vp, vs, rho, qsi, hf, vf, rf, B, L);
+  for (int i = 0; i < K * B; ++i) {
+    const int b = i % B;
+    const float* in = state + 4 * i;
+    const sl::RefineState s{in[0], in[1], in[2], in[3]};
+    sl::NewtonKeep keep;
+    if (rayleigh) {
+      sl::lane_refine_newton<true>(m, b, s, t[i], mmf[i], t_base, atten != 0,
+                                   n_newton, compute_group != 0, &keep,
+                                   &root[i], &u[i]);
+    } else {
+      sl::lane_refine_newton<false>(m, b, s, t[i], mmf[i], t_base, atten != 0,
+                                    n_newton, compute_group != 0, &keep,
+                                    &root[i], &u[i]);
+    }
+  }
+}
+
 }  // extern "C"

@@ -10,9 +10,12 @@ host, and (on a machine with an NVIDIA GPU) the kernels themselves.
   model counts (B=37, not a multiple of a 128-model block), K of 1, 5 and
   13, dynamic and pinned closures, the value and the dual-number bodies;
   and a lane's bits do not depend on the batch around it.
+* refine_lanes' two phases (a float Illinois kernel, then a dual-number
+  Newton kernel) with their hand-over going through memory give the
+  one-pass lane body's bits.
 * ``cuda``-marked tests run the CUDA kernels against the plain versions on
-  the card (secular_lanes and secular_lanes_grad bit for bit, at the
-  ragged shapes too); they skip without one.
+  the card (all four bit for bit, at the ragged shapes too); they skip
+  without one.
 
 This file imports no JAX, so on a GPU machine without JAX it runs alone:
 ``python -m pytest --noconftest -p no:cacheprovider
@@ -157,14 +160,23 @@ def host_lib(tmp_path_factory):
     lib.secular_lanes_frozen_host.argtypes = [P] * 11 + [I, I, I, I, F, I]
     lib.secular_lanes_grad_host.argtypes = [P] * 13 + [I, I, I, I, F, I]
     lib.refine_lanes_host.argtypes = [P] * 13 + [I, I, I, I, F, I, I, I, I]
+    lib.refine_illinois_host.argtypes = [P] * 12 + [I, I, I, I, F, I, I]
+    lib.refine_newton_host.argtypes = [P] * 12 + [I, I, I, I, F, I, I, I]
     return lib
 
 
-def _host_call(lib, kind, wave, c, t, mmf, model, nlay):
+def _host_call(lib, kind, wave, c, t, mmf, model, nlay, hi=None):
+    """One kernel's lane body over every lane on the host; ``refine``
+    takes ``c`` as the brackets' lower ends and ``hi`` as their upper."""
     K, B = c.shape
     L = model[0].shape[0]
     ray = int(wave == "rayleigh")
     p = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
+    if kind == "refine":
+        root, u = torch.empty_like(c), torch.empty_like(c)
+        lib.refine_lanes_host(*p(c, hi, t, mmf, *model, root, u), K, B, L,
+                              ray, 1.0, 1, 6, 2, 1)
+        return root, u
     if kind == "dynamic":
         F, bhs = torch.empty_like(c), torch.empty_like(c)
         mm = torch.empty_like(mmf)
@@ -227,8 +239,19 @@ def test_lane_code_on_host_ragged_shapes(host_lib, ragged, wave, K, kind):
     _assert_F(Fk, Fp)
 
 
+def _random_brackets(c, seed):
+    """Brackets around ``c``: lower ends within 0.1 km/s of it, widths
+    0.005-0.2 km/s, drawn from a numpy generator (most hold no root; the
+    lane code runs the same steps either way)."""
+    rng = np.random.default_rng(seed)
+    lo = c + torch.tensor(rng.uniform(-0.1, 0.1, c.shape), dtype=c.dtype)
+    hi = lo + torch.tensor(rng.uniform(0.005, 0.2, c.shape), dtype=c.dtype)
+    return lo.contiguous(), hi.contiguous()
+
+
 @pytest.mark.parametrize("wave", WAVES)
-@pytest.mark.parametrize("kind", ["dynamic", "pinned", "frozen", "grad"])
+@pytest.mark.parametrize("kind", ["dynamic", "pinned", "frozen", "grad",
+                                  "refine"])
 def test_host_lane_code_is_batch_invariant(host_lib, ragged, wave, kind):
     """A lane's bits do not depend on the batch around it: the (13, 37)
     batch equals each model alone (B=1) and each row alone (K=1), bit for
@@ -238,12 +261,14 @@ def test_host_lane_code_is_batch_invariant(host_lib, ragged, wave, kind):
     K, B = c.shape
     mmf = torch.zeros_like(pin) if kind == "dynamic" else pin
     call = "dynamic" if kind in ("dynamic", "pinned") else kind
+    lo, hi = _random_brackets(c, seed=5) if kind == "refine" else (c, None)
 
     def run(rows, cols):
         sub = lambda x: x[rows][:, cols].contiguous()  # noqa: E731
-        out = _host_call(host_lib, call, wave, sub(c), sub(t), sub(mmf),
+        out = _host_call(host_lib, call, wave, sub(lo), sub(t), sub(mmf),
                          [m[:, cols].contiguous() for m in model],
-                         nl[cols].contiguous())
+                         nl[cols].contiguous(),
+                         hi=None if hi is None else sub(hi))
         return list(out) if isinstance(out, (tuple, list)) else [out]
 
     whole = run(slice(None), slice(None))
@@ -284,6 +309,39 @@ def test_refine_lane_code_on_host_matches_plain(host_lib, lanes, wave,
         rel = ((u - up).abs() / up.abs()).double()
         assert float(torch.quantile(rel, 0.99)) <= 1e-3
     assert (n_newton == 0) == bool((up == 0).all())
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("K", [1, 5, 13])
+@pytest.mark.parametrize("n_newton", [0, 1, 2])
+def test_refine_phases_through_memory_equal_one_pass(host_lib, ragged, wave,
+                                                     K, n_newton):
+    """refine_lanes' two kernels (the float Illinois phase, then the
+    dual-number Newton phase) with their hand-over (lo, hi, x, sgn F(lo))
+    going through memory give the one-pass lane body's bits, on random
+    brackets at ragged shapes, with and without the group velocity."""
+    c, t, pin, model, nl = _rows(ragged, wave, K)
+    lo, hi = _random_brackets(c, seed=100 * K + n_newton)
+    B, L = c.shape[1], model[0].shape[0]
+    ray = int(wave == "rayleigh")
+    p = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
+    for group in (1, 0):
+        one = [torch.empty_like(c) for _ in range(2)]
+        host_lib.refine_lanes_host(*p(lo, hi, t, pin, *model, *one), K, B, L,
+                                   ray, 1.0, 1, 6, n_newton, group)
+        state = torch.full((K, B, 4), float("nan"))
+        host_lib.refine_illinois_host(*p(lo, hi, t, pin, *model, state), K,
+                                      B, L, ray, 1.0, 1, 6)
+        two = [torch.empty_like(c) for _ in range(2)]
+        host_lib.refine_newton_host(*p(state, t, pin, *model, *two), K, B, L,
+                                    ray, 1.0, 1, n_newton, group)
+        assert all(torch.equal(x, y) for x, y in zip(_bits(one), _bits(two)))
+        assert bool(torch.isfinite(one[0]).all())
+        if n_newton == 0:
+            # the Illinois phase's estimate is the root, as its kernel
+            # writes it when no Newton phase follows
+            assert torch.equal(_bits([state[..., 2]])[0], _bits(one[:1])[0])
+        assert bool((one[1] == 0).all()) == (n_newton == 0 or not group)
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +392,7 @@ def test_cuda_kernels_match_plain(cuda_device, lanes, ragged, wave):
     with pytest.raises(TypeError, match="float32"):
         tsl.secular_lanes(c.double(), t.double(), mm0,
                           *[m.double() for m in model], nlay)
-    # the two kernels of the redesigned launch, bit for bit at ragged
-    # shapes, and at the main shapes above
+    # every kernel bit for bit at the main shapes above and at ragged ones
     assert all(torch.equal(x, y)
                for x, y in zip(_bits((Fk, bk)), _bits((Fp, bp))))
     assert all(torch.equal(x, y) for x, y in zip(_bits(Gk), _bits(Gp)))
@@ -355,6 +412,21 @@ def test_cuda_kernels_match_plain(cuda_device, lanes, ragged, wave):
         p = tsl.secular_lanes_grad(rc, rt, pin, *rmodel, rnl, wave=wave,
                                    backend="plain")
         assert all(torch.equal(x, y) for x, y in zip(_bits(k), _bits(p)))
+        k = tsl.secular_lanes_frozen(rc, rt, pin, *rmodel, rnl, wave=wave)
+        p = tsl.secular_lanes_frozen(rc, rt, pin, *rmodel, rnl, wave=wave,
+                                     backend="plain")
+        assert torch.equal(*_bits((k, p)))
+        lo, hi = (x.to(cuda_device)
+                  for x in _random_brackets(rc.cpu(), seed=K))
+        for n_newton in (0, 1, 2):
+            for group in (True, False):
+                k, p = (tsl.refine_lanes(lo, hi, rt, pin, *rmodel, rnl,
+                                         wave=wave, n_ill=6,
+                                         n_newton=n_newton,
+                                         compute_group=group, backend=b)
+                        for b in ("kernel", "plain"))
+                assert all(torch.equal(x, y)
+                           for x, y in zip(_bits(k), _bits(p)))
 
 
 @pytest.mark.cuda
