@@ -9,6 +9,13 @@ Drives the port's two main paths through the entry points a user calls:
     (+-0.5% Vs/Vp jitter, seed 0), 18 periods, Rayleigh and Love, the
     MCMC sampler's warm re-solve, and the refinement in one
     ``refine_lanes`` call (``nnewton=2``, ``fuse_illinois``);
+  * the joint Rayleigh + Love solve ``surf_forward_joint`` on that
+    batch (Love cold, a 512-model Rayleigh calibration, the Rayleigh
+    solve seeded from the Love roots), the single-model float64 solve
+    ``surf_forward`` with an overtone, ``surf_ellipticity`` /
+    ``surf_amplitude`` and the host inversion surface built on them
+    (``Model1D.forward``, ``PointCascadia.misfit``, ``Point.MCinv``,
+    ``PostPoint``);
   * the batched MCMC sampler ``invert_grid`` at the JAX package's
     flagship workload (bench.py:249-260): 64 PointCascadia points of the
     reference's example setting (examples/invert_point.py:21-51),
@@ -46,6 +53,24 @@ Phases, each of which raises on failure:
               the refine_lanes runs agree with the default path
               (|dc| <= 1e-4 km/s on >= 99.9% of lanes); the TEST1 golden
               curve (tests/golden/test1.npz) to 1e-4;
+  4b. joint   surf_forward_joint on the phase-4 batch (cfg of the Rayleigh
+              and Love runs, nsub 512): its Love outputs bit for bit phase
+              4's Love solve, its Rayleigh ok on >= 0.999 of curves,
+              |dc| <= 1e-4 km/s against phase 4's Rayleigh solve on >=
+              99.9% of lanes, ok agreement >= 0.999, the launch counts of
+              secular_lanes, secular_lanes_frozen and secular_lanes_grad
+              moved; then, float64 on the card, the single-model
+              surf_forward on the TEST1 eus model (nmodes 2, Rayleigh and
+              Love) to the golden tolerances of
+              tests/test_dispersion_golden.py and on the bench batch's
+              first model against the kernel solve (|dc| <= 1e-4 km/s),
+              with its seconds per curve; surf_ellipticity on a uniform
+              Poisson halfspace (c = 0.9194 beta to 2e-3, H/V flat to
+              1e-3 and within 0.02 of 0.681) and surf_amplitude on TEST1
+              (finite, positive where solved); Model1D.forward and
+              PointCascadia.misfit on the reference's example point,
+              Point.MCinv (runN 4, chainL 2, 5 periods) writing an npz
+              with finite misfits, and PostPoint loading it;
   5. sampler  on 2 points x 4 chains x 10 steps the sampler with the
               kernels gives the tracks of the sampler with the plain
               versions; then the flagship workload twice with the default
@@ -56,7 +81,9 @@ Phases, each of which raises on failure:
               misfit finite, the acceptance rate printed, the expected
               launch counters moved; a torch.profiler trace (CUDA
               activity) of a 6-row run gives the device idle share;
-  6. time     solves/s per run, each kernel's time beside its plain
+  6. time     solves/s per run and the joint solve's R+L curve pairs/s
+              beside the independent Rayleigh + Love solves, each
+              kernel's time beside its plain
               version's and its bound, and at the sampler's size (B=1,920,
               K=18; K=90 for secular_lanes, the fused warm sweep),
               refine_lanes with n_newton 2 beside the separate frozen +
@@ -68,7 +95,9 @@ Phases, each of which raises on failure:
 
 Prints the card line and a JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``.  Run from the repository
-root: ``python3 chip_smoke.py``.
+root: ``python3 chip_smoke.py``; it takes about ten minutes on an H100,
+most of them in the sampler's host-bound runs and the plain versions'
+timings.
 """
 
 import json
@@ -297,7 +326,8 @@ def main():
     from pysurfinv_tpu_torch.ops import secular_lanes as sl
     from pysurfinv_tpu_torch.ops.dispersion import (SurfConfig, _illinois,
                                                     _initial_c,
-                                                    surf_forward_batch)
+                                                    surf_forward_batch,
+                                                    surf_forward_joint)
     from pysurfinv_tpu_torch.ops.flatten import flatten_factors
 
     t_start = time.perf_counter()
@@ -479,9 +509,12 @@ def main():
                                cfg=cfg_s, c_warm=c_warm)
     out_n = surf_forward_batch(*arrs, periods, nl, wave="rayleigh",
                                cfg=cfg_n)
+    n_refine = sl.refine_lanes.launches
     out_f = surf_forward_batch(*arrs, periods, nl, wave="rayleigh",
                                cfg=cfg_f)
     torch.cuda.synchronize()
+    # refine_lanes calls with n_newton 0: the fuse_illinois solve's
+    launches_nnewton0 = sl.refine_lanes.launches - n_refine
     launches_solve = {k.__name__: k.launches for k in sl.KERNELS}
     log(f"[slice] kernel launches in the solve path's run: "
         f"{launches_solve}")
@@ -550,12 +583,18 @@ def main():
     golden_check(surf_forward_batch, SurfConfig, dev, card)
 
     mark("slice")
+    # ---- 4b. the joint solve, the single-model solve, the host surface -
+    launches_joint = joint_phase(sl, surf_forward_joint, arrs, periods, nl,
+                                 cfg_r, cfg_l, out_r, out_l, card)
+    mark("joint")
+    single = single_model_phase(arrs, nl, periods, out_r, dev, card)
+    mark("single+host")
     # ---- 5. the sampler ----------------------------------------------
     launches_mc, mc = sampler_phase(sl, card)
     mark("sampler")
 
     # ---- 6. time -----------------------------------------------------
-    solves = {}
+    solves, solve_ms = {}, {}
     for name, (_, cfg, cw) in runs.items():
         wave = "love" if name == "love" else "rayleigh"
 
@@ -573,8 +612,30 @@ def main():
             torch.cuda.synchronize()
             best = min(best, (time.perf_counter() - t0) / 2)
         solves[name] = B_SLICE / best
+        solve_ms[name] = best * 1e3
         log(f"[time] {name}: {best * 1e3:.2f} ms per {B_SLICE}-model "
             f"18-period solve, {B_SLICE / best:.1f} solves/s ({card})")
+
+    def joint():
+        return surf_forward_joint(*arrs, periods, nl, cfg=cfg_r,
+                                  cfg_love=cfg_l, nsub=512)
+
+    joint()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(2):
+            joint()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 2)
+    solves["joint_rl"] = B_SLICE / best
+    solve_ms["joint_rl"] = best * 1e3
+    indep = solve_ms["rayleigh"] + solve_ms["love"]
+    log(f"[time] joint_rl: {best * 1e3:.2f} ms per {B_SLICE} Rayleigh + "
+        f"Love curve pairs, {B_SLICE / best:.1f} pairs/s; the independent "
+        f"Rayleigh + Love solves {indep:.2f} ms ({B_SLICE * 1e3 / indep:.1f}"
+        f" pairs/s) ({card})")
 
     kern = {}
     for wave, cfg in waves.items():
@@ -651,15 +712,25 @@ def main():
             f"secular_lanes_grad + glue) {sep_ms:.3f} ms ({card})")
         # the fuse_illinois form (n_newton 0: the Illinois kernel alone)
         # against the Illinois frozen launches and glue it replaces
-        ill_ms = time_cuda(lambda: sl.refine_lanes(
-            lo, hi, tk, mmb, *model, nl, wave=wave, n_ill=n_ill, n_newton=0,
-            compute_group=False), n=5)
+        def ill(b):
+            return sl.refine_lanes(lo, hi, tk, mmb, *model, nl, wave=wave,
+                                   n_ill=n_ill, n_newton=0,
+                                   compute_group=False, backend=b)
+
+        ill_ms = time_cuda(lambda: ill("kernel"), n=5)
+        ill_pms = time_cuda(lambda: ill("plain"), n=1, windows=1, warm=0)
+        # n_ill + 2 float evaluations; the same inputs and outputs
+        ill_bms, ill_bby = bound(model_bytes + 6 * 18 * B_SLICE * 4,
+                                 applied["refine_lanes"] * per_lane
+                                 * (n_ill + 2))
         sep_ill_ms = time_cuda(lambda: _illinois(
             lambda x: sl.secular_lanes_frozen(x, tk, mmb, *model, nl,
                                               wave=wave), lo, hi, n_ill), n=3)
-        kern[("nnewton0", wave)] = (ill_ms, sep_ill_ms)
+        kern[("nnewton0", wave)] = (ill_ms, sep_ill_ms, ill_pms, ill_bms,
+                                    ill_bby)
         log(f"[time] refine_lanes {wave} n_newton 0 (the Illinois kernel) "
-            f"{ill_ms:.3f} ms vs the separate launches it replaces "
+            f"{ill_ms:.3f} ms, plain {ill_pms:.3f} ms, bound {ill_bms:.3f} "
+            f"ms ({ill_bby}), vs the separate launches it replaces "
             f"({n_ill + 2} secular_lanes_frozen + glue) {sep_ill_ms:.3f} ms "
             f"({card})")
         sampler_size_times(sl, kern, [a[:B_SAMPLER] for a in arrs],
@@ -680,6 +751,12 @@ def main():
                                                          "love")],
                          nnewton0_ms={w: kern[("nnewton0", w)][0]
                                       for w in waves},
+                         nnewton0_plain_ms={w: kern[("nnewton0", w)][2]
+                                            for w in waves},
+                         nnewton0_bound_ms={w: kern[("nnewton0", w)][3]
+                                            for w in waves},
+                         nnewton0_bound_by=kern[("nnewton0", "rayleigh")][4],
+                         nnewton0_launches_solve_path=launches_nnewton0,
                          separate_illinois_ms={w: kern[("nnewton0", w)][1]
                                                for w in waves})
         if name == "secular_lanes":
@@ -695,12 +772,14 @@ def main():
 
         kernels.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=rep,
-            launches=launches_solve[name] + launches_mc[name],
+            launches=(launches_solve[name] + launches_joint[name]
+                      + launches_mc[name]),
             max_abs_err=kerr[name]["max_abs_err"],
             ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
             library_ms=None,
             launches_solve_path=launches_solve[name],
             launches_sampler_path=launches_mc[name],
+            launches_joint_path=launches_joint[name],
             love_ms=lms, love_plain_ms=lpms, love_bound_ms=lbms,
             shape=f"K={33 if name == 'secular_lanes' else 18},B={B_SLICE},"
                   f"L={L}", bitwise=bits[name],
@@ -710,7 +789,8 @@ def main():
             **extra))
 
     log(f"[time] summary ({card}): solves/s " + json.dumps(
-        {k: round(v, 1) for k, v in solves.items()}) + "; sampler " +
+        {k: round(v, 1) for k, v in solves.items()}) + "; single-model "
+        + json.dumps(single) + "; sampler " +
         json.dumps(mc) + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
         " (by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
         + ")")
@@ -1046,6 +1126,205 @@ def golden_check(surf_forward_batch, SurfConfig, dev, card):
         log(f"[slice] TEST1 golden {wave} (float32 kernels): max phase "
             f"error {ec:.3e}, max group error {eu:.3e} of the curve's "
             f"maximum ({card})")
+
+
+def joint_phase(sl, surf_forward_joint, arrs, periods, nl, cfg_r, cfg_l,
+                out_r, out_l, card):
+    """Phase 4b, first part: the joint solve on the phase-4 batch against
+    phase 4's independent Rayleigh and Love solves.  Returns the joint
+    path's launch counts."""
+    import torch
+    sl.reset_launch_counts()
+    t0 = time.perf_counter()
+    cR, uR, okR, cL, uL, okL = surf_forward_joint(
+        *arrs, periods, nl, cfg=cfg_r, cfg_love=cfg_l, nsub=512)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in sl.KERNELS}
+    for k in ("secular_lanes", "secular_lanes_frozen", "secular_lanes_grad"):
+        check(launches[k] > 0, f"{k} was not launched on the joint path")
+    love_same = bitwise((cL, uL), out_l[:2]) and torch.equal(okL, out_l[2])
+    check(love_same, "joint Love outputs differ from the independent Love "
+          "solve's")
+    ok_curve = float(okR[:, :, 0].all(dim=1).float().mean())
+    agree = float((okR == out_r[2]).float().mean())
+    both = okR & out_r[2]
+    d = (cR - out_r[0]).abs()
+    close = float((d <= 1e-4)[both].float().mean())
+    # lanes that differ, named (model, period index, |dc|), not hidden
+    bad = (both & (d > 1e-4)) | (okR != out_r[2])
+    where = bad[:, :, 0].nonzero()[:20].tolist()
+    named = [(b, p, float(d[b, p, 0])) for b, p in where]
+    du = (uR - out_r[1]).abs()[both].double()
+    log(f"[joint] surf_forward_joint B={cR.shape[0]} P={cR.shape[1]} nsub "
+        f"512: {sec:.3f} s first call; Love bitwise equal to the "
+        f"independent solve {love_same}; Rayleigh ok {ok_curve:.5f} of "
+        f"curves, ok agree {agree:.6f}, |dc| <= 1e-4 km/s on {close:.6f} of "
+        f"lanes, max|dc| {float(d[both].max()):.3e}, q99|du| "
+        f"{float(torch.quantile(du, 0.99)):.3e} km/s; {int(bad.sum())} lanes "
+        f"differ (model, period, |dc|): {named}; launches {launches} "
+        f"({card})")
+    check(ok_curve >= 0.999, f"joint Rayleigh ok fraction {ok_curve:.5f}")
+    check(agree >= 0.999, f"joint Rayleigh ok agreement {agree:.6f}")
+    check(close >= 0.999, f"joint Rayleigh |dc| <= 1e-4 on {close:.6f}")
+    return launches
+
+
+# tests/test_dispersion_golden.py:40-46, 70 (that file imports JAX)
+GRV_MEDIAN_TOL = {0: 1e-5, 1: 3e-5}
+
+
+def phase_tol(golden, wt, mode):
+    """Per-period phase tolerance of the TEST1 golden curves: 1e-3,
+    widened where the golden file's own two columns disagree."""
+    blk = golden[f"phv_{wt}_{mode}"]
+    return np.maximum(1e-3, 2.0 * np.abs(blk[:, 1] - blk[:, 2]) / blk[:, 1])
+
+
+def single_model_phase(arrs, nl, periods, out_r, dev, card):
+    """Phase 4b, second part: the single-model float64 solve, ellipticity
+    and amplitude, and the host inversion surface, on the card.  Returns
+    their numbers."""
+    import torch
+
+    from pysurfinv_tpu_torch.inversion.point import (PointCascadia,
+                                                     PostPointCascadia)
+    from pysurfinv_tpu_torch.models.model1d import buildModel1D
+    from pysurfinv_tpu_torch.ops.dispersion import (SurfConfig,
+                                                    surf_amplitude,
+                                                    surf_ellipticity,
+                                                    surf_forward)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_helpers import GOLDEN, load_eus_model
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    res = {}
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # TEST1, nmodes 2, to the golden tolerances
+    g, m = np.load(GOLDEN), load_eus_model()
+    args = [torch.tensor(m[k], **f64)
+            for k in ("h", "vp", "vs", "rho", "qsinv")]
+    per = torch.tensor(m["periods"], **f64)
+    for wave, wt in (("rayleigh", "R"), ("love", "L")):
+        (c, u, ok), sec = timed(surf_forward, *args, per, m["nlay"],
+                                wave=wave, cfg=SurfConfig(nmodes=2))
+        check(c.is_cuda and c.dtype == torch.float64,
+              f"single-model {wave}: output {c.dtype} on {c.device}")
+        c, u, ok = (x.cpu().numpy() for x in (c, u, ok))
+        errs = []
+        for mode in (0, 1):
+            refc = g[f"phv_{wt}_{mode}"][:, 1]
+            refu = g[f"grv_{wt}_{mode}"][:, 1]
+            tol = phase_tol(g, wt, mode)
+            rc = np.abs(c[:, mode] - refc) / refc
+            ru = np.abs(u[:, mode] - refu) / refu
+            check(ok[:, mode].all() and (rc < tol).all()
+                  and np.median(rc) < 1e-6 and (ru < 10 * tol).all()
+                  and np.median(ru) < GRV_MEDIAN_TOL[mode],
+                  f"single-model TEST1 {wave} mode {mode}: phase rel err "
+                  f"{rc.max():.3e} (median {np.median(rc):.3e}), group "
+                  f"{ru.max():.3e} (median {np.median(ru):.3e})")
+            errs.append((rc.max(), np.median(ru)))
+        ec = np.abs(c[:, 0] - g[f"phv_{wt}_0"][:, 1]).max() \
+            / g[f"phv_{wt}_0"][:, 1].max()
+        eu = np.abs(u[:, 0] - g[f"grv_{wt}_0"][:, 1]).max() \
+            / g[f"grv_{wt}_0"][:, 1].max()
+        check(ec < 1e-5 and eu < 5e-5, f"single-model TEST1 {wave}: "
+              f"fundamental phase {ec:.3e} of max (1e-5), group {eu:.3e} "
+              "(5e-5)")
+        res[f"test1_{wave}_nmodes2_s"] = round(sec, 3)
+        log(f"[single] surf_forward float64 TEST1 {wave} nmodes 2, "
+            f"{len(m['periods'])} periods: {sec:.3f} s; fundamental phase "
+            f"{ec:.3e}, group {eu:.3e} of max; mode 1 max phase rel err "
+            f"{errs[1][0]:.3e}, median group rel err {errs[1][1]:.3e} "
+            f"({card})")
+
+    # model 0 of the bench batch against the kernel solve; the default
+    # config (nbisect 12) converges the float64 root, cfg_r's 8 Illinois
+    # iterations leave up to ~7e-5 km/s
+    b0 = [a[0].to(torch.float64) for a in arrs]
+    p64 = periods.to(torch.float64)
+    secs = []
+    for _ in range(2):  # the second call is the time per curve
+        (c0, _, ok0), sec = timed(surf_forward, *b0, p64, int(nl[0]),
+                                  wave="rayleigh", cfg=SurfConfig())
+        secs.append(sec)
+    ok_k = out_r[2][0, :, 0]
+    dc = float((c0[:, 0] - out_r[0][0, :, 0].double()).abs().max())
+    check(bool(ok0[:, 0].all()) and torch.equal(ok0[:, 0], ok_k)
+          and dc <= 1e-4, f"single-model bench model 0: ok "
+          f"{ok0[:, 0].tolist()} against {ok_k.tolist()}, max|dc| {dc:.3e}")
+    res["s_per_curve"] = round(secs[1], 3)
+    res["first_call_s"] = round(secs[0], 3)
+    log(f"[single] surf_forward float64 bench model 0 (L={b0[0].shape[0]}, "
+        f"{len(p64)} periods, Rayleigh, phase + group): {secs[1]:.3f} s per "
+        f"curve (first call {secs[0]:.3f} s); max|dc| against the kernel "
+        f"solve {dc:.3e} km/s ({card})")
+
+    # ellipticity on a uniform Poisson halfspace (tests/test_eigen.py)
+    L, vs0 = 8, 3.0
+    hs = (torch.zeros(L, **f64), torch.full((L,), vs0 * 3 ** 0.5, **f64),
+          torch.full((L,), vs0, **f64), torch.full((L,), 2.7, **f64),
+          torch.zeros(L, **f64))
+    per_hs = torch.tensor([5.0, 10.0, 20.0, 50.0], **f64)
+    ell, c_hs, ok_hs = surf_ellipticity(
+        *hs, per_hs, 2, cfg=SurfConfig(atten=False, flat=False))
+    ell = ell[:, 0].abs().cpu().numpy()
+    c_rel = float((c_hs[:, 0] / (0.9194 * vs0) - 1).abs().max())
+    spread = float(ell.std() / ell.mean())
+    check(bool(ok_hs.all()) and c_rel < 2e-3 and spread < 1e-3
+          and abs(ell.mean() - 0.681) < 0.02,
+          f"Poisson halfspace: c rel err {c_rel:.3e}, H/V {ell.tolist()}")
+    (amp, _, ok_a), sec = timed(surf_amplitude, *args, per, m["nlay"])
+    amp, ok_a = amp.cpu().numpy()[:, 0], ok_a.cpu().numpy()[:, 0]
+    check(ok_a.any() and np.isfinite(amp).all() and (amp[ok_a] > 0).all(),
+          f"surf_amplitude TEST1: {amp.tolist()}")
+    log(f"[single] surf_ellipticity Poisson halfspace: c/(0.9194 beta) - 1 "
+        f"max {c_rel:.3e}, H/V {float(ell.mean()):.5f} (spread "
+        f"{spread:.2e}); surf_amplitude TEST1 ({sec:.3f} s): finite, "
+        f"positive on {int(ok_a.sum())}/{len(ok_a)} solved periods ({card})")
+
+    # the host inversion surface on the reference's example point, each
+    # entry point on its default device (the card)
+    mod = buildModel1D(MC_SETTING, dict(MC_LOCAL))
+    pred, sec = timed(mod.forward, PERIODS)
+    check(pred is not None and np.isfinite(pred).all()
+          and ((pred > 3) & (pred < 5)).all(),
+          f"Model1D.forward on the example point: {pred}")
+    pt = PointCascadia(MC_SETTING, dict(MC_LOCAL), periods=PERIODS,
+                       vels=MC_VELS, uncers=MC_UNCERS)
+    mis = pt.misfit()
+    check(np.isfinite(mis).all() and mis[0] < 88888,
+          f"PointCascadia.misfit: {mis}")
+    log(f"[single] Model1D.forward (18 periods, {sec:.3f} s) c in "
+        f"[{pred.min():.4f}, {pred.max():.4f}] km/s; PointCascadia.misfit "
+        f"{float(mis[0]):.5f} ({card})")
+    p5 = PointCascadia(MC_SETTING, dict(MC_LOCAL), periods=PERIODS[::4],
+                       vels=MC_VELS[::4], uncers=MC_UNCERS[::4])
+    out = tempfile.mkdtemp(prefix="chip_smoke_mcinv_")
+    _, sec = timed(p5.MCinv, outdir=out, pid="p", runN=4, chainL=2, seed=0)
+    npz = os.path.join(out, "p.npz")
+    check(os.path.exists(npz), "Point.MCinv wrote no npz")
+    track = np.load(npz, allow_pickle=True)["mcTrack"]
+    check(track.shape[0] == 4 and np.isfinite(track).all()
+          and (track[:, 0] < 88888).all(), f"Point.MCinv track {track}")
+    post = PostPointCascadia(npz)
+    check(np.isfinite(post.avgMod.misfit) and post.accFinal.any(),
+          f"PostPoint avgMod misfit {post.avgMod.misfit}")
+    res["mcinv_4_steps_s"] = round(sec, 3)
+    log(f"[single] Point.MCinv runN 4 chainL 2, 5 periods: {sec:.3f} s, "
+        f"misfits {track[:, 0].round(5).tolist()}, accepts "
+        f"{track[:, 2].tolist()}; PostPoint avgMod misfit "
+        f"{float(post.avgMod.misfit):.5f}, threshold {post.thres:.5f} "
+        f"({card})")
+    return res
 
 
 if __name__ == "__main__":

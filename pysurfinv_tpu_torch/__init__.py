@@ -1,11 +1,12 @@
 """pysurfinv_tpu_torch — the PyTorch + CUDA port of ``pysurfinv_tpu``.
 
-The batched surface-wave dispersion solve of the JAX package and the
-batched MCMC sampler that drives it, on PyTorch tensors, with the four
-secular-function kernels written by hand in CUDA C++ for Hopper
-(``csrc/``).  Module paths mirror the JAX package so each
-counterpart is easy to find; the JAX package is the reference the port
-is tested against and is never imported here.
+The batched surface-wave dispersion solve of the JAX package (one wave,
+or both with ``surf_forward_joint``), the single-model solve with
+overtones, the batched MCMC sampler and the host inversion surface, on
+PyTorch tensors, with the four secular-function kernels written by hand
+in CUDA C++ for Hopper (``csrc/``).  Module paths mirror the JAX
+package so each counterpart is easy to find; the JAX package is the
+reference the port is tested against and is never imported here.
 
 The device of a computation is the device of its input tensors: CUDA
 tensors run the kernels, CPU tensors run the kernels' plain PyTorch
@@ -16,7 +17,11 @@ __version__ = "0.1.0"
 
 from pysurfinv_tpu_torch.ops.dispersion import (  # noqa: F401
     SurfConfig,
+    surf_amplitude,
+    surf_ellipticity,
+    surf_forward,
     surf_forward_batch,
+    surf_forward_joint,
 )
 
 
@@ -33,6 +38,9 @@ def __getattr__(name):
         "CompiledModel": "pysurfinv_tpu_torch.inversion.compiled",
         "Point": "pysurfinv_tpu_torch.inversion.point",
         "PointCascadia": "pysurfinv_tpu_torch.inversion.point",
+        "PostPoint": "pysurfinv_tpu_torch.inversion.point",
+        "PostPointCascadia": "pysurfinv_tpu_torch.inversion.point",
+        "fast_surf": "pysurfinv_tpu_torch.compat",
         "invert_grid": "pysurfinv_tpu_torch.parallel.grid",
     }
     if name in _lazy:

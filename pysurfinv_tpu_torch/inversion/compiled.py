@@ -29,6 +29,7 @@ Frozen-structure deviations from the reference (as in the JAX package):
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import NamedTuple
 
 import numpy as np
@@ -324,13 +325,27 @@ class CompiledModel:
                                    device=dev), limit=0.3)
         return ok
 
+    def build_profile(self, theta, psi=None):
+        """(ntheta,) theta -> one padded (h, vp, vs, rho, qsinv) stack, each
+        (L,), and the int nlay (the halfspace is the last real row): the
+        batch of one of :meth:`build_profile_batch`."""
+        *stack, nlay = self.build_profile_batch(
+            theta[None], None if psi is None else psi[None])
+        return (*(x[0] for x in stack), int(nlay[0]))
+
     # ------------------------------------------------------------------
     def forward(self, theta, periods, psi=None, wave="rayleigh", cfg=None):
-        """The single-model curve of the JAX package's ``forward``."""
-        raise NotImplementedError(
-            "CompiledModel.forward needs the single-model surf_forward, "
-            "not ported yet (ROADMAP.md Queue 1 item 7); batches go "
-            "through build_profile_batch + surf_forward_batch")
+        """(theta, psi) -> fundamental-mode phase velocities (P,), 0 where
+        the solve failed: the single-model ``surf_forward`` in theta's
+        dtype, on its device."""
+        from pysurfinv_tpu_torch.ops.dispersion import (SurfConfig,
+                                                        surf_forward)
+
+        cfg = replace(cfg or SurfConfig(), nmodes=1)
+        h, vp, vs, rho, qsinv, nlay = self.build_profile(theta, psi)
+        c, _, ok = surf_forward(h, vp, vs, rho, qsinv, periods, nlay,
+                                wave=wave, cfg=cfg)
+        return torch.where(ok[:, 0], c[:, 0], torch.zeros_like(c[:, 0]))
 
 
 class _HostCtx:

@@ -3,12 +3,9 @@
 Capability spec from the reference pySurfInv's ``models.py``: layer
 stacking with ``layersAbove`` context and topography offset, YAML
 round-trip with Brownian parameter lists, thin-layer filtering and
-padding for the solver, and the Cascadia region classes with localInfo
-injection.
-
-Not ported yet (see ROADMAP.md): the single-model forward call
-(``Model1D.forward``/``calForward``, which wait for the single-model
-solver).
+padding for the solver, the forward dispersion call (the port's
+single-model ``surf_forward`` in place of the f2py fast_surf), and the
+Cascadia region classes with localInfo injection.
 """
 
 from __future__ import annotations
@@ -16,6 +13,7 @@ from __future__ import annotations
 from copy import deepcopy
 
 import numpy as np
+import torch
 
 from pysurfinv_tpu_torch.models.brownian import BrownianVar
 from pysurfinv_tpu_torch.models.layers import (
@@ -57,6 +55,30 @@ def padded_profile(h, vs, vp, rho, qs, L=None):
 
     return (p(h, 0.0), p(vp, vp[-1]), p(vs, vs[-1]), p(rho, rho[-1]),
             p(1.0 / qs, 1.0 / qs[-1]), nlay)
+
+
+def calForward(inProfile, wavetype="Ray", periods=(5, 10, 20, 40, 60, 80),
+               device="cuda", dtype=torch.float64):
+    """Drop-in equivalent of the reference's ``_calForward``
+    (models.py:11-33): (6, n) profile -> phase velocities (numpy), or
+    None when any period failed (c < 0.01).  Solves on ``device`` in
+    ``dtype``."""
+    from pysurfinv_tpu_torch.ops.dispersion import SurfConfig, surf_forward
+
+    wave = {"Ray": "rayleigh", "Love": "love"}.get(wavetype)
+    if wave is None:
+        raise ValueError(f"Wrong surface wave type: {wavetype}!")
+    prof = np.asarray(inProfile, dtype=float)
+    H, VP, VS, RHO, QSI, nlay = padded_profile(
+        prof[0], prof[1], prof[2], prof[3], prof[4])
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa
+    c, u, ok = surf_forward(t(H), t(VP), t(VS), t(RHO), t(QSI),
+                            t(np.asarray(periods, dtype=float)), nlay,
+                            wave=wave, cfg=SurfConfig())
+    c = c[:, 0].cpu().numpy()
+    if np.any(c < 0.01):
+        return None
+    return c
 
 
 class Model1D:
@@ -143,6 +165,21 @@ class Model1D:
     def moho(self):
         z, *_, grp = self.seisPropGrids()
         return z[grp.index("mantle")]
+
+    # ---- prediction -----------------------------------------------------
+    def forward(self, periods=(5, 10, 20, 40, 60, 80), device="cuda",
+                dtype=torch.float64):
+        """Rayleigh phase velocities at ``periods`` (models.py:104-112),
+        solved on ``device`` in ``dtype``; None, after
+        printing the model, when the forward failed."""
+        refLayer = self.info.get("refLayer", False)
+        prof = np.array(self.seisPropLayers(refLayer=refLayer)[:-1])
+        pred = calForward(prof, wavetype="Ray", periods=periods,
+                          device=device, dtype=dtype)
+        if pred is None:
+            print("Warning: Forward not complete! Model listed below:")
+            self.show()
+        return pred
 
     # ---- presentation ----------------------------------------------------
     def show(self):

@@ -29,16 +29,27 @@ Every secular evaluation is one call of a kernel of
 :mod:`pysurfinv_tpu_torch.ops.secular_lanes`.  ``lax.cond`` of the JAX
 code becomes a Python ``if`` on a reduction over the lanes: each costs
 one device-to-host sync (the rescue pass, the ``c_warm`` cold fill).
+
+:func:`surf_forward_joint` solves both waves of a batch, seeding the
+Rayleigh solve from the Love roots.  The single-model :func:`surf_forward`
+(with overtones) and :func:`surf_ellipticity` / :func:`surf_amplitude`
+run the same three phases on the eager oracle of
+:mod:`pysurfinv_tpu_torch.ops.secular`, in the caller's dtype and on the
+caller's device, with no kernel — as the JAX package's single-model
+``surf_forward`` always runs its XLA path.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from pysurfinv_tpu_torch.ops.flatten import H_MIN, model_preamble
+from pysurfinv_tpu_torch.ops.secular import (
+    attenuation_rescale, effective_halfspace, love_secular, rayleigh_amplitude,
+    rayleigh_ellipticity, rayleigh_secular)
 from pysurfinv_tpu_torch.ops.secular_lanes import (
     RAYLEIGH_NAMES, refine_lanes, secular_lanes, secular_lanes_frozen,
     secular_lanes_grad)
@@ -478,3 +489,321 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
     # (P*nmodes, B) -> (B, P, nmodes)
     out = lambda x: x.reshape(P, nmodes, B).permute(2, 0, 1)  # noqa: E731
     return out(c_out), out(u_out), out(ok_l)
+
+
+def _nanmedian(x):
+    """Median along axis 0 ignoring NaNs, as ``np.nanmedian`` and
+    ``jnp.nanmedian`` compute it: an even count averages the two middle
+    values ((lo + hi) * 0.5; ``torch.nanmedian`` returns the lower one);
+    an all-NaN column gives NaN."""
+    n = (~torch.isnan(x)).sum(dim=0)
+    s = torch.sort(x, dim=0).values              # NaNs sort last
+    take = lambda i: s.gather(0, i.clamp(min=0)[None])[0]  # noqa: E731
+    med = (take((n - 1) // 2) + take(n // 2)) * 0.5
+    return torch.where(n > 0, med, torch.full_like(med, math.nan))
+
+
+def surf_forward_joint(h, vp, vs, rho, qsinv, periods, nlay,
+                       cfg: SurfConfig = SurfConfig(),
+                       cfg_love: SurfConfig | None = None,
+                       nsub: int = 512, wseed_nscan: int = 8,
+                       wseed_backoff: int = 4, wseed_coarse: int = 0):
+    """Joint Rayleigh + Love curves with calibrated cross-wave seeding.
+
+    Counterpart of the JAX package's ``surf_forward_joint``.  The
+    reference computes both waves independently (``fast_surf.f:2-5``);
+    here the Love roots of the same model seed the Rayleigh solve:
+
+      1. solve Love cold (``cfg_love``, default ``cfg``);
+      2. cold-solve Rayleigh on a strided ``nsub``-model calibration
+         subset (``nbisect=3``, no group velocity) and take the
+         per-period median offset ``median(cL - cR)`` over valid lanes;
+      3. solve Rayleigh for the whole batch through the fused ``c_warm``
+         sweep seeded at ``cL - offset`` with a ``wseed_nscan * dc``
+         window (backoff ``wseed_backoff * dc``, probe step
+         ``wseed_coarse * dc``, 0 = ``cfg.coarse``).
+
+    Lanes whose window misses fall back to the cold chain, and a period
+    with no valid calibration lane has a NaN offset, whose seed the
+    sweep never accepts, so the roots are those of the independent
+    solve to refinement tolerance.  The JAX package runs the scheme on
+    its Pallas backends only; the port runs it on both of its backends
+    (``"plain"`` is the counterpart of ``pallas_interpret``: the same
+    algorithm).  ``cfg.nmodes != 1`` takes two independent solves.
+
+    Returns ``(cR, uR, okR, cL, uL, okL)``, each ``(B, P, nmodes)``.
+    """
+    cfg_l = cfg_love if cfg_love is not None else cfg
+    args = (h, vp, vs, rho, qsinv, periods, nlay)
+    if cfg.nmodes != 1:
+        return (*surf_forward_batch(*args, wave="rayleigh", cfg=cfg),
+                *surf_forward_batch(*args, wave="love", cfg=cfg_l))
+    cL, uL, okL = surf_forward_batch(*args, wave="love", cfg=cfg_l)
+
+    B = h.shape[0]
+    ns = min(nsub, B)
+    stride = max(B // ns, 1)
+    sub = lambda x: x[0:stride * ns:stride].contiguous()  # noqa: E731
+    periods = torch.as_tensor(periods, device=h.device)
+    nlay = torch.as_tensor(nlay, device=h.device).to(torch.int32).expand(B)
+    per_sub = sub(periods) if periods.dim() == 2 else periods
+    # calibration: bracket-accuracy roots are plenty for a median offset
+    cRs, _, okRs = surf_forward_batch(
+        *map(sub, (h, vp, vs, rho, qsinv)), per_sub, sub(nlay),
+        wave="rayleigh", cfg=replace(cfg, compute_group=False, nbisect=3))
+    d = sub(cL)[:, :, 0] - cRs[:, :, 0]                       # (ns, P)
+    valid = sub(okL)[:, :, 0] & okRs[:, :, 0]
+    offs = _nanmedian(torch.where(valid, d, torch.full_like(d, math.nan)))
+    c_pred = torch.where(okL[:, :, 0], cL[:, :, 0] - offs[None, :],
+                         torch.zeros_like(cL[:, :, 0]))
+    cfg_seed = replace(cfg, wseed_nscan=wseed_nscan,
+                       wseed_backoff=wseed_backoff, wseed_coarse=wseed_coarse)
+    cR, uR, okR = surf_forward_batch(*args, wave="rayleigh", cfg=cfg_seed,
+                                     c_warm=c_pred)
+    return cR, uR, okR, cL, uL, okL
+
+
+# ---- the single-model solve on the eager oracle (ops/secular.py) -------
+
+
+def _secular_fn(wave):
+    """F(c, t, mdl, mm) of the eager oracle, ``mdl = (a, b, rho, d)``
+    (L,) or (..., L) arrays broadcast against c's batch shape."""
+    def model(c, mdl, mm):
+        shp = torch.broadcast_shapes(c.shape, mm.shape, mdl[0].shape[:-1])
+        return [x.expand(*shp, x.shape[-1]) for x in mdl]
+
+    if wave in RAYLEIGH_NAMES:
+        return lambda c, t, mdl, mm: rayleigh_secular(
+            c, t, *model(c, mdl, mm), mm)
+    if wave in ("love", "lov", "L"):
+        return lambda c, t, mdl, mm: love_secular(
+            c, t, *model(c, mdl, mm)[1:], mm)
+    raise ValueError(f"unknown wave type: {wave}")
+
+
+def _model_at_period(t, vp, vs, rho, qsinv, fac, cfg: SurfConfig):
+    """Attenuated + flattened model arrays (a, b, rho, d) at the periods
+    ``t`` (calcul.f:112-133): (..., L) for t of shape (...)."""
+    if cfg.atten:
+        a_t, b_t = attenuation_rescale(vp, vs, qsinv, t[..., None],
+                                       cfg.t_base)
+    else:
+        a_t, b_t = vp, vs
+    return (a_t * fac.vel_fac, b_t * fac.vel_fac, rho * fac.rho_fac,
+            fac.h_flat)
+
+
+def _first_flip(F, cs, t, mdl, nlay, cfg: SurfConfig):
+    """Evaluate F on the c-grid ``cs`` (one batch axis); return the first
+    sign-change interval (index, found, closure layers)."""
+    b, d = mdl[1], mdl[3]
+    mms = effective_halfspace(cs, t, b, d, nlay, cfg.fact)
+    sgn = _sign(F(cs, t, mdl, mms))
+    # search window: stop at c >= b(mmax) + 0.3 (calcul.f:165-167)
+    within = cs < (b[mms - 1] + 0.3)
+    cand = (sgn[:-1] != sgn[1:]) & within[1:]
+    return torch.argmax(cand.to(torch.int8)), cand.any(), mms
+
+
+def _bracket(F, c_start, t, mdl, nlay, cfg: SurfConfig, nscan: int,
+             coarse: int):
+    """First sign change above ``c_start``, narrowed to a dc-wide cell.
+
+    Sweeps a ``coarse * dc`` grid spanning ``nscan * dc``, then re-scans
+    the hit cell at ``dc``.  Returns ``(c_lo, found, mm)``: the root lies
+    in ``[c_lo, c_lo + dc]`` and ``mm`` is the truncation frozen at the
+    bracket's upper end (the NEVILL convention, calcul.f:156-172).
+    """
+    dc = cfg.dc
+    ladder = lambda n: torch.arange(  # noqa: E731
+        n, dtype=c_start.dtype, device=c_start.device)
+    if coarse > 1:
+        k = max(nscan // coarse, 1)
+        cs = c_start + (coarse * dc) * ladder(k + 1)
+        ic, found_c, _ = _first_flip(F, cs, t, mdl, nlay, cfg)
+        cs = cs[ic] + dc * ladder(coarse + 1)
+        i, found_f, mms = _first_flip(F, cs, t, mdl, nlay, cfg)
+        found = found_c & found_f
+    else:
+        cs = c_start + dc * ladder(nscan + 1)
+        i, found, mms = _first_flip(F, cs, t, mdl, nlay, cfg)
+    # reject brackets whose root would sit above the halfspace shear
+    # velocity (calcul.f:191); c_lo <= b_hs keeps roots within one dc
+    found = found & (cs[i] <= mdl[1][mms[i + 1] - 1])
+    return cs[i], found, mms[i + 1]
+
+
+def _group_velocity(F, root, t, mdl, mm):
+    """u = c / (1 - (T/c) F_T/F_c): implicit differentiation at the root,
+    by two forward-mode tangents with the attenuated + flattened ``mdl``
+    held fixed (the reference's variational convention, surfa.f
+    LEIGEN/REIGEN).  The secular function's renormalisation scale is
+    detached, so its tangent drops out as ``stop_gradient``'s does."""
+    from torch.func import jvp
+
+    _, f_c = jvp(lambda cc: F(cc, t, mdl, mm), (root,),
+                 (torch.ones_like(root),))
+    _, f_t = jvp(lambda tt: F(root, tt, mdl, mm), (t,),
+                 (torch.ones_like(t),))
+    f_c = torch.where(f_c.abs() > 0, f_c, torch.ones_like(f_c))
+    return root / (1.0 - (t / root) * f_t / f_c)
+
+
+def surf_forward(h, vp, vs, rho, qsinv, periods, nlay,
+                 wave: str = "rayleigh", cfg: SurfConfig = SurfConfig()):
+    """Dispersion curves for one padded layered model, with overtones.
+
+    Counterpart of the JAX package's single-model ``surf_forward``, on
+    the eager oracle: every secular evaluation is a loop over layers of
+    PyTorch ops in the inputs' dtype, on their device (no kernel;
+    ``cfg.backend`` is ignored).  Phase 1 brackets each (period, mode)
+    in turn (the cold first period, warm starts ``warm_backoff * dc``
+    below the previous bracket, overtones 0.1 dc above a 12-iteration
+    estimate of the previous mode's root, a cold rescue pass when a
+    sparse period list outruns the warm window), phase 2 refines every
+    lane at once by Illinois, phase 3 takes u from forward-mode tangents.
+
+    Args:
+      h, vp, vs, rho, qsinv: (L,) padded model; layer ``nlay-1`` is the
+        halfspace, pads replicate it with h = 0.  ``qsinv`` is 1/Qs.
+      periods: (P,) periods in seconds, ascending.
+      nlay:    number of real layers including the halfspace.
+      wave:    'rayleigh' or 'love'.
+      cfg:     :class:`SurfConfig`.
+
+    Returns (c, u, valid), each (P, nmodes); c and u are 0 where not
+    found.  ``valid`` costs one host sync (the rescue pass's test).
+    """
+    dtype, device = h.dtype, h.device
+    periods = torch.as_tensor(periods, dtype=dtype, device=device)
+    nl = torch.as_tensor(nlay, device=device).reshape(())
+    kind = 1 if wave in ("love", "lov", "L") else 2
+    h_eff, fac = model_preamble(h, nl, kind, cfg.flat)
+    F = _secular_fn(wave)
+    nmodes, P, dc = cfg.nmodes, periods.shape[0], cfg.dc
+
+    def chain(ok):
+        return _mode_chain(ok, -1) if nmodes > 1 else ok
+
+    def initial_c(t):
+        c1 = _initial_c(h_eff[None], vs[None], qsinv[None], nl[None],
+                        t[None], wave, cfg)
+        return c1.to(dtype).expand(nmodes)
+
+    # ================= phase 1: bracket every (period, mode) ============
+    def bracket_period(t, starts, nscan, coarse0):
+        """dc-wide brackets for all modes at one period."""
+        mdl = _model_at_period(t, vp, vs, rho, qsinv, fac, cfg)
+        c_los, mms, founds = [], [], []
+        root_est = None
+        for iq in range(nmodes):
+            start = starts[iq]
+            if iq > 0:
+                # overtones start 0.1 dc above the previous mode's
+                # 12-iteration root estimate (the duplicate-mode guard;
+                # coarse sweeps are for the fundamental only)
+                start = torch.maximum(start, root_est + 0.1 * dc)
+            c_lo, found, mm = _bracket(F, start, t, mdl, nl, cfg, nscan,
+                                       coarse0 if iq == 0 else 1)
+            if iq < nmodes - 1:
+                root_est = _illinois(lambda c: F(c, t, mdl, mm),  # noqa
+                                     c_lo, c_lo + dc, 12)
+            c_los.append(c_lo)
+            mms.append(mm)
+            founds.append(found)
+        return torch.stack(c_los), torch.stack(mms), torch.stack(founds)
+
+    # first period cold, then the warm-started chain (lax.scan in JAX)
+    starts0 = initial_c(periods[0])
+    lo0, mm0, ok0 = bracket_period(periods[0], starts0, cfg.nscan_first,
+                                   cfg.coarse_first)
+    ok0 = chain(ok0)
+    rows = [(lo0, mm0, ok0)]
+    c_start = torch.where(ok0, lo0 - cfg.warm_backoff * dc, starts0)
+    alive = ok0
+    for p in range(1, P):
+        lok, mmk, okk = bracket_period(periods[p], c_start, cfg.nscan,
+                                       cfg.coarse)
+        okk = chain(okk & alive)
+        c_start = torch.where(okk, lok - cfg.warm_backoff * dc, c_start)
+        alive = okk
+        rows.append((lok, mmk, okk))
+    c_lo, mm, ok = (torch.stack(x) for x in zip(*rows))     # (P, nmodes)
+
+    if P > 1 and not bool(ok.all()):
+        # ---- rescue pass: a sparse period list can move the root farther
+        # than the warm window reaches; re-bracket every (period, mode)
+        # from a cold start and take it where the warm chain failed
+        cold = [bracket_period(t, initial_c(t), cfg.nscan_first,
+                               cfg.coarse_first) for t in periods]
+        lo_c, mm_c, ok_c = (torch.stack(x) for x in zip(*cold))
+        ok_c = chain(ok_c)
+        use = ~ok & ok_c
+        ok = chain(ok | ok_c)
+        c_lo = torch.where(use, lo_c, c_lo)
+        mm = torch.where(use, mm_c, mm)
+
+    # ================= phase 2: refine all lanes at once ================
+    KL, L = P * nmodes, h.shape[-1]
+    t_l = periods.repeat_interleave(nmodes)
+    lo_l, mm_l, ok_l = c_lo.reshape(KL), mm.reshape(KL), ok.reshape(KL)
+    mdls = tuple(x.expand(KL, L) for x in
+                 _model_at_period(t_l, vp, vs, rho, qsinv, fac, cfg))
+    root_l = _illinois(lambda c: F(c, t_l, mdls, mm_l), lo_l, lo_l + dc,
+                       cfg.nbisect)
+    # root must not exceed the halfspace shear velocity (calcul.f:191)
+    b_hs_l = mdls[1].gather(1, (mm_l - 1)[:, None])[:, 0]
+    ok_l = ok_l & (root_l <= b_hs_l)
+
+    # ================= phase 3: group velocity ===========================
+    if cfg.compute_group:
+        u_l = _group_velocity(F, root_l, t_l, mdls, mm_l)
+    else:
+        u_l = torch.zeros_like(root_l)
+    zero = torch.zeros_like(root_l)
+    out = lambda x: x.reshape(P, nmodes)  # noqa: E731
+    return (out(torch.where(ok_l, root_l, zero)),
+            out(torch.where(ok_l, u_l, zero)), out(ok_l))
+
+
+def _rayleigh_at_roots(fn, h, vp, vs, rho, qsinv, periods, nlay,
+                       cfg: SurfConfig):
+    """``fn(c, t, a, b, rho, d, mm)`` of the Rayleigh model at each root of
+    :func:`surf_forward` (0 where not found), with (c, valid)."""
+    c_all, _, ok_all = surf_forward(h, vp, vs, rho, qsinv, periods, nlay,
+                                    wave="rayleigh",
+                                    cfg=replace(cfg, compute_group=False))
+    periods = torch.as_tensor(periods, dtype=h.dtype, device=h.device)
+    nl = torch.as_tensor(nlay, device=h.device).reshape(())
+    _, fac = model_preamble(h, nl, 2, cfg.flat)
+    t_l = periods.repeat_interleave(cfg.nmodes)
+    c_l, ok_l = c_all.reshape(-1), ok_all.reshape(-1)
+    mdl = tuple(x.expand(t_l.shape[0], h.shape[-1]) for x in
+                _model_at_period(t_l, vp, vs, rho, qsinv, fac, cfg))
+    mm = effective_halfspace(c_l, t_l, mdl[1], mdl[3], nl, cfg.fact)
+    c_safe = torch.where(ok_l, c_l, mdl[1][:, 0] + 0.5)
+    val = fn(c_safe, t_l, *mdl, mm)
+    val = torch.where(ok_l, val, torch.zeros_like(val))
+    return val.reshape(c_all.shape), c_all, ok_all
+
+
+def surf_ellipticity(h, vp, vs, rho, qsinv, periods, nlay,
+                     cfg: SurfConfig = SurfConfig()):
+    """Rayleigh surface H/V ellipticity curves (DLTAR4 mup=2 capability):
+    the roots of :func:`surf_forward`, then the ellipticity ratio at each
+    (``surfa.f:360-364``).  Returns (ell, c, valid), each (P, nmodes)."""
+    return _rayleigh_at_roots(rayleigh_ellipticity, h, vp, vs, rho, qsinv,
+                              periods, nlay, cfg)
+
+
+def surf_amplitude(h, vp, vs, rho, qsinv, periods, nlay,
+                   cfg: SurfConfig = SurfConfig()):
+    """Rayleigh amplitude-response curves (DLTAR4 mup=3 capability): the
+    e2-seeded closure magnitude at each root (``surfa.f:366-371``),
+    modulated by the water-column standing-wave factor under a liquid
+    top; renormalised per layer, so only relative amplitudes across
+    nearby (c, T) are meaningful.  Returns (amp, c, valid), each
+    (P, nmodes)."""
+    return _rayleigh_at_roots(rayleigh_amplitude, h, vp, vs, rho, qsinv,
+                              periods, nlay, cfg)

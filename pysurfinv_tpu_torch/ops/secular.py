@@ -28,7 +28,10 @@ the JAX module's:
     layer, with the scale detached so autograd derivatives are those of
     the unscaled recursion;
   * the unselected branch of every ``where`` is computed on clamped
-    arguments (the double-where trick) so autograd stays NaN-free.
+    arguments (the double-where trick) so autograd stays NaN-free;
+  * every layer's propagation matrix (Dunkin 5x5, Haskell 2x2) is formed
+    at once, elementwise over the layer axis; the sequential loop only
+    multiplies, selects and renormalises, a few PyTorch ops a layer.
 
 The kernels in :mod:`pysurfinv_tpu_torch.ops.secular_lanes` renormalise
 at other points, so they share only the sign of F and the ratio of its
@@ -171,19 +174,18 @@ def _dunkin_entries(c, csq, wvno, a_m, b_m, rho_m, d_m):
     return e, liquid
 
 
-def _dunkin_update(e, b1, b2, b3, b4, b5):
-    """Symmetric 5-vector update (surfa.f:326-335)."""
-    bb1 = (e["e11"] * b1 + e["e12"] * b2 + e["e13"] * b3
-           + e["e14"] * b4 + e["e15"] * b5)
-    bb2 = (e["e21"] * b1 + e["e22"] * b2 + e["e23"] * b3
-           + e["e24"] * b4 - e["e14"] * b5)
-    bb3 = (e["e31"] * b1 + e["e32"] * b2 + e["e33"] * b3
-           - 0.5 * e["e23"] * b4 + 0.5 * e["e13"] * b5)
-    bb4 = (e["e41"] * b1 + e["e42"] * b2 - 2.0 * e["e32"] * b3
-           + e["e22"] * b4 - e["e12"] * b5)
-    bb5 = (e["e51"] * b1 - e["e41"] * b2 + 2.0 * e["e31"] * b3
-           - e["e21"] * b4 + e["e11"] * b5)
-    return torch.stack([bb1, bb2, bb3, bb4, bb5], dim=-1)
+def _dunkin_matrix(c, csq, wvno, a, b, rho, d):
+    """(..., L, 5, 5) Dunkin update matrices of every layer of (..., L)
+    model arrays at once (the symmetric 5-vector update, surfa.f:326-335),
+    and the (..., L) liquid mask."""
+    x = lambda v: v[..., None]  # noqa: E731  (batch -> layer axis)
+    e, liquid = _dunkin_entries(x(c), x(csq), x(wvno), a, b, rho, d)
+    rows = ((e["e11"], e["e12"], e["e13"], e["e14"], e["e15"]),
+            (e["e21"], e["e22"], e["e23"], e["e24"], -e["e14"]),
+            (e["e31"], e["e32"], e["e33"], -0.5 * e["e23"], 0.5 * e["e13"]),
+            (e["e41"], e["e42"], -2.0 * e["e32"], e["e22"], -e["e12"]),
+            (e["e51"], -e["e41"], 2.0 * e["e31"], -e["e21"], e["e11"]))
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2), liquid
 
 
 def _dunkin_closure(c, csq, a_h, b_h, rho_h, bvec):
@@ -234,12 +236,12 @@ def rayleigh_secular(c, t, a, b, rho, d, mmax):
     csq = c * c
     L = a.shape[-1]
     bshape = torch.broadcast_shapes(c.shape, a.shape[:-1], mmax.shape)
-    bvec = torch.zeros(bshape + (5,), dtype=a.dtype, device=a.device)
-    bvec[..., 0] = 1.0
+    bvec = torch.eye(5, dtype=a.dtype, device=a.device)[0].expand(
+        bshape + (5,))
+    M, _ = _dunkin_matrix(c, csq, wvno, a[..., :-1], b[..., :-1],
+                          rho[..., :-1], d[..., :-1])
     for m in range(L - 1):
-        e, _ = _dunkin_entries(c, csq, wvno, a[..., m], b[..., m],
-                               rho[..., m], d[..., m])
-        new = _dunkin_update(e, *bvec.unbind(-1))
+        new = (M[..., m, :, :] @ bvec[..., None])[..., 0]
         apply = (m < (mmax - 1))[..., None]
         bvec = _renorm(torch.where(apply, new, bvec))
 
@@ -268,30 +270,98 @@ def love_secular(c, t, b, rho, d, mmax):
     tt0 = _at(rho, h) * b_h * b_h * rb_h
     state = _renorm(torch.stack([torch.ones_like(tt0), tt0], dim=-1))
 
+    # every layer's Haskell matrix at once (..., L-1), then the loop
+    b_m, rho_m, d_m = b[..., :-1], rho[..., :-1], d[..., :-1]
+    c_, wv = c[..., None], wvno[..., None]
+    water = b_m.abs() <= ACCUR
+    b_safe = torch.where(water, torch.ones_like(b_m), b_m)
+    rb = torch.sqrt(((c_ / b_safe) ** 2 - 1.0).abs())
+    hmu = rho_m * b_safe * b_safe
+    q = -wv * d_m * rb
+    # regimes (surfa.f:156-172)
+    osc = (c_ > b_safe) & (rb >= 1e-20)
+    ev = (c_ < b_safe) & (rb >= 1e-20)
+    zero, one = torch.zeros_like(q), torch.ones_like(q)
+    q_osc = torch.where(osc, q, zero)
+    q_ev = torch.where(ev, q, zero)
+    rb_safe = torch.where(rb >= 1e-20, rb, one)
+    eq = torch.exp(q_ev)  # q_ev <= 0
+    shq, chq = 0.5 * (eq - 1.0 / eq), 0.5 * (eq + 1.0 / eq)
+    y = torch.where(osc, torch.sin(q_osc) / rb_safe,
+                    torch.where(ev, shq / rb_safe, -wv * d_m * one))
+    z = torch.where(osc, rb * torch.sin(q_osc),
+                    torch.where(ev, -rb * shq, zero))
+    cosq = torch.where(osc, torch.cos(q_osc), torch.where(ev, chq, one))
+    G = torch.stack([torch.stack([cosq, -y / hmu], dim=-1),
+                     torch.stack([hmu * z, cosq], dim=-1)], dim=-2)
+    idx = torch.arange(L - 1, device=b.device)
+    apply = (idx <= (mmax[..., None] - 2)) & ~water
     for m in range(L - 2, -1, -1):
-        b_m, rho_m, d_m = b[..., m], rho[..., m], d[..., m]
-        apply = (m <= (mmax - 2)) & (b_m.abs() > ACCUR)
-        water = b_m.abs() <= ACCUR
-        b_safe = torch.where(water, torch.ones_like(b_m), b_m)
-        rb = torch.sqrt(((c / b_safe) ** 2 - 1.0).abs())
-        hmu = rho_m * b_safe * b_safe
-        q = -wvno * d_m * rb
-        # regimes (surfa.f:156-172)
-        osc = (c > b_safe) & (rb >= 1e-20)
-        ev = (c < b_safe) & (rb >= 1e-20)
-        zero, one = torch.zeros_like(q), torch.ones_like(q)
-        q_osc = torch.where(osc, q, zero)
-        q_ev = torch.where(ev, q, zero)
-        rb_safe = torch.where(rb >= 1e-20, rb, one)
-        eq = torch.exp(q_ev)  # q_ev <= 0
-        shq, chq = 0.5 * (eq - 1.0 / eq), 0.5 * (eq + 1.0 / eq)
-        y = torch.where(osc, torch.sin(q_osc) / rb_safe,
-                        torch.where(ev, shq / rb_safe, -wvno * d_m * one))
-        z = torch.where(osc, rb * torch.sin(q_osc),
-                        torch.where(ev, -rb * shq, zero))
-        cosq = torch.where(osc, torch.cos(q_osc), torch.where(ev, chq, one))
-        ut, tt = state[..., 0], state[..., 1]
-        new = torch.stack([cosq * ut - y * tt / hmu,
-                           hmu * z * ut + cosq * tt], dim=-1)
-        state = _renorm(torch.where(apply[..., None], new, state))
+        new = (G[..., m, :, :] @ state[..., None])[..., 0]
+        state = _renorm(torch.where(apply[..., m, None], new, state))
     return -state[..., 1]
+
+
+def _dunkin_pair(c, t, a, b, rho, d, mmax):
+    """Propagate the e2- and e3-seeded Dunkin recursions jointly.
+
+    DLTAR4's mup=2/3 modes rerun the recursion from unit vectors e2 and
+    e3 instead of e1, and skip liquid layers entirely (``surfa.f:196-207,
+    218``).  Both 5-vectors share one scale factor (detached), so their
+    ratio — the only quantity mup=2 consumes — is that of the unscaled
+    recursions.
+    """
+    c = torch.as_tensor(c, dtype=a.dtype)
+    t = torch.as_tensor(t, dtype=a.dtype)
+    mmax = torch.as_tensor(mmax, device=a.device)
+    wvno = TWO_PI / (c * t)
+    csq = c * c
+    L = a.shape[-1]
+    bshape = torch.broadcast_shapes(c.shape, a.shape[:-1], mmax.shape)
+    unit = torch.eye(5, dtype=a.dtype, device=a.device)
+    uv = unit[:, 1:3].expand(bshape + (5, 2))   # columns: e2, e3 seeds
+    M, liquid = _dunkin_matrix(c, csq, wvno, a[..., :-1], b[..., :-1],
+                               rho[..., :-1], d[..., :-1])
+    idx = torch.arange(L - 1, device=a.device)
+    keep = (idx < (mmax[..., None] - 1)) & ~liquid
+    for m in range(L - 1):
+        new = torch.where(keep[..., m, None, None], M[..., m, :, :] @ uv, uv)
+        scale = new.abs().amax(dim=(-2, -1), keepdim=True).detach()
+        uv = new * (1.0 / torch.where(scale > 0.0, scale,
+                                      torch.ones_like(scale)))
+    u, v = uv[..., 0], uv[..., 1]
+
+    h = mmax - 1
+    a_h, b_h, rho_h = _at(a, h), _at(b, h), _at(rho, h)
+    return (_dunkin_closure(c, csq, a_h, b_h, rho_h, u),
+            _dunkin_closure(c, csq, a_h, b_h, rho_h, v))
+
+
+def rayleigh_ellipticity(c, t, a, b, rho, d, mmax):
+    """Surface H/V ellipticity at a Rayleigh root (DLTAR4, mup=2).
+
+    ``surfa.f:360-364``: ellipticity = 0.5 * bb1(jump=3) / bb1(jump=2),
+    evaluated at the dispersion root ``c``.
+    """
+    F2, F3 = _dunkin_pair(c, t, a, b, rho, d, mmax)
+    F2 = torch.where(F2.abs() > 0, F2, torch.full_like(F2, ACCUR))
+    return 0.5 * F3 / F2
+
+
+def rayleigh_amplitude(c, t, a, b, rho, d, mmax):
+    """Amplitude response |bb1| at a Rayleigh root (DLTAR4, mup=3).
+
+    ``surfa.f:366-371``: the e2-seeded recursion's closure magnitude,
+    modulated by the water-column standing-wave factor cos(wvno * d1 *
+    sqrt(|c^2/a1^2 - 1|)) when the surface layer is liquid.  The
+    magnitude is renormalised per layer, so only relative amplitudes
+    across nearby (c, t) are meaningful.
+    """
+    F2, _ = _dunkin_pair(c, t, a, b, rho, d, mmax)
+    amp = F2.abs()
+    c = torch.as_tensor(c, dtype=a.dtype)
+    liquid_top = b[..., 0].abs() <= ACCUR
+    wvno = TWO_PI / (c * torch.as_tensor(t, dtype=a.dtype))
+    ra = c / a[..., 0]
+    rad = wvno * d[..., 0] * torch.sqrt((ra * ra - 1.0).abs())
+    return torch.where(liquid_top, (amp * torch.cos(rad)).abs(), amp)

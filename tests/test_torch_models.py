@@ -84,6 +84,7 @@ def test_model_batch_from_numpy():
 
 
 PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
+                "pysurfinv_tpu_torch.compat",
                 "pysurfinv_tpu_torch.models.model1d",
                 "pysurfinv_tpu_torch.inversion.random",
                 "pysurfinv_tpu_torch.inversion.priors",
@@ -94,9 +95,13 @@ PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
 
 
 def test_port_imports_no_jax():
-    """The port's modules (and chip_smoke.py, which runs where JAX is
-    absent) import neither JAX nor the JAX package."""
+    """The port's modules, their lazy exports (PostPoint, fast_surf) and
+    chip_smoke.py, which runs where JAX is absent, import neither JAX nor
+    the JAX package."""
     code = ("import sys, runpy, " + ", ".join(PORT_MODULES) + "; "
+            "from pysurfinv_tpu_torch import PostPoint, fast_surf; "
+            "from pysurfinv_tpu_torch.inversion.point import "
+            "PostPointCascadia; "
             "runpy.run_path('chip_smoke.py', run_name='chip_smoke'); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'pysurfinv_tpu.')) "
