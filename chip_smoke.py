@@ -16,6 +16,10 @@ Drives the port's two main paths through the entry points a user calls:
     ``surf_amplitude`` and the host inversion surface built on them
     (``Model1D.forward``, ``PointCascadia.misfit``, ``Point.MCinv``,
     ``PostPoint``);
+  * the analysis surface in float64 (no kernel): ``sensitivity_kernels``,
+    ``eigenfunctions_regular``, ``energy_integrals``,
+    ``kernel_densities`` and the classes ``SensKernel`` /
+    ``SensKernelPert`` on the TEST1 model;
   * the batched MCMC sampler ``invert_grid`` at the JAX package's
     flagship workload (bench.py:249-260): 64 PointCascadia points of the
     reference's example setting (examples/invert_point.py:21-51),
@@ -71,6 +75,22 @@ Phases, each of which raises on failure:
               PointCascadia.misfit on the reference's example point,
               Point.MCinv (runN 4, chainL 2, 5 periods) writing an npz
               with finite misfits, and PostPoint loading it;
+  4c. analysis float64 on the card, the TEST1 eus model: sensitivity_kernels
+              (Rayleigh and Love, nbisect 30, group, T = 10/30/60 s)
+              against central finite differences of surf_forward at layers
+              5/17/30/50 (2e-5 of scale for phase, 3e-3 for group) and
+              against the same call on CPU tensors (1e-9 of each field's
+              max, 1e-8 for the group kernels), q_app against the TEST1
+              .att golden (2e-2), nmodes 2 once a wave;
+              eigenfunctions_regular and energy_integrals (nmodes 2, the 10
+              golden periods, at the golden header roots) against the
+              TEST1 depth tables, integrals, group and variational phase
+              velocities, and kernel_densities(group=True) against the
+              density tables, with the tolerances and exclusions of
+              tests/test_eigen.py and tests/test_kernel_density_golden.py;
+              SensKernel "ad" and "eigen" (68 layers, T 10-60 s, endmode 1)
+              and SensKernelPert (the first 12 layers) on a dict model,
+              finite where solved; the seconds of each call;
   5. sampler  on 2 points x 4 chains x 10 steps the sampler with the
               kernels gives the tracks of the sampler with the plain
               versions; then the flagship workload twice with the default
@@ -96,8 +116,8 @@ Phases, each of which raises on failure:
 Prints the card line and a JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``.  Run from the repository
 root: ``python3 chip_smoke.py``; it takes about ten minutes on an H100,
-most of them in the sampler's host-bound runs and the plain versions'
-timings.
+most of them in the sampler's host-bound runs, the plain versions'
+timings and the analysis phase's eager float64 calls (~1 minute).
 """
 
 import json
@@ -589,6 +609,9 @@ def main():
     mark("joint")
     single = single_model_phase(arrs, nl, periods, out_r, dev, card)
     mark("single+host")
+    # ---- 4c. the analysis surface --------------------------------------
+    analysis = analysis_phase(dev, card)
+    mark("analysis")
     # ---- 5. the sampler ----------------------------------------------
     launches_mc, mc = sampler_phase(sl, card)
     mark("sampler")
@@ -790,7 +813,8 @@ def main():
 
     log(f"[time] summary ({card}): solves/s " + json.dumps(
         {k: round(v, 1) for k, v in solves.items()}) + "; single-model "
-        + json.dumps(single) + "; sampler " +
+        + json.dumps(single) + "; analysis " + json.dumps(analysis)
+        + "; sampler " +
         json.dumps(mc) + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
         " (by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
         + ")")
@@ -1324,6 +1348,302 @@ def single_model_phase(arrs, nl, periods, out_r, dev, card):
         f"{track[:, 2].tolist()}; PostPoint avgMod misfit "
         f"{float(post.avgMod.misfit):.5f}, threshold {post.thres:.5f} "
         f"({card})")
+    return res
+
+
+# tests/test_kernels.py:74, 89, 105 (that file imports JAX): AD against
+# central finite differences, phase and group; apparent Q against TEST1
+FD_PHASE_TOL, FD_GROUP_TOL, Q_APP_TOL = 2e-5, 3e-3, 2e-2
+# tests/test_eigen.py:141-151, 219-240: profiles against the TEST1 depth
+# tables (values, spherical-depth derivatives), the energy integrals, the
+# integral-path u, the variational c and the Lagrangian residual
+EIG_TOL, DEIG_TOL = 1e-4, 5e-3
+INT_TOL, U_INT_TOL, C_VAR_TOL, FLAGR_TOL = 1e-4, 1e-5, 1e-6, 1e-4
+# tests/test_kernel_density_golden.py:39-41, 34: density ceilings in units
+# of the golden column's max, above DEPTH_CAP km excluded
+KPHV_TOL, KGRV_TOL, DEPTH_CAP = {0: 0.01, 1: 0.02}, 0.02, 200.0
+# the card's analysis against the same call on the host's CPU; the group
+# kernels are second derivatives, whose rounding the two libms move more
+# (du_dvp, the smallest, 2.27e-9 on an H100; JAX and the port differ by
+# 1.01e-9 on one CPU)
+CPU_TOL, CPU_TOL_GROUP = 1e-9, 1e-8
+ANALYSIS_PERIODS = [10.0, 30.0, 60.0]
+FD_LAYERS = [5, 17, 30, 50]
+
+
+def golden_roots(g, wt, periods):
+    """(P, 2) phase velocities of the TEST1 eigenfunction headers, -1
+    where the golden has no table (mode 1 at its missing periods)."""
+    cg = np.full((len(periods), 2), -1.0)
+    for mode in (0, 1):
+        for ip, T in enumerate(int(t) for t in periods):
+            key = f"eig_{wt}_{mode}_{T}_hdr"
+            if key in g.files:
+                cg[ip, mode] = g[key][1]
+    return cg
+
+
+def analysis_phase(dev, card):
+    """Phase 4c: the analysis surface in float64 on the card — the
+    sensitivity kernels against finite differences of the port's own
+    solve and against the same call on the CPU, apparent Q, the
+    eigenfunctions, energy integrals and kernel densities against the
+    TEST1 goldens, and the user-facing classes.  Returns seconds per
+    call.  (R mode 1 at T = 20 s is excluded throughout, as the golden
+    tests exclude it: the golden root sits ~9e-4 off the secular root at
+    the R1/R2 osculation.)"""
+    import torch
+
+    from pysurfinv_tpu_torch.ops.dispersion import SurfConfig, surf_forward
+    from pysurfinv_tpu_torch.ops.eigen import (eigenfunctions_regular,
+                                               energy_integrals)
+    from pysurfinv_tpu_torch.ops.kernels import (kernel_densities,
+                                                 sensitivity_kernels)
+    from pysurfinv_tpu_torch.senskernel import SensKernel, SensKernelPert
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_helpers import GOLDEN, load_eus_model
+
+    g, m = np.load(GOLDEN), load_eus_model()
+    keys = ("h", "vp", "vs", "rho", "qsinv")
+    res = {}
+
+    def args_on(device, model=m):
+        return [torch.tensor(np.asarray(model[k]), dtype=torch.float64,
+                             device=device) for k in keys]
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the classes run on their default device, the card (a host run of
+    # this phase names the CPU)
+    dkw = {} if dev.type == "cuda" else {"device": dev.type}
+
+    def timed(name, fn, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        res[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    def on_card(x):
+        check(x.device.type == dev.type
+              and x.dtype in (torch.float64, torch.bool),
+              f"analysis output {x.dtype} on {x.device}")
+        return x.cpu().numpy()
+
+    per = ANALYSIS_PERIODS
+    gold_rows = [int(t) // 10 - 1 for t in per]
+    fd_cfg = SurfConfig(nmodes=1, nbisect=30)
+    a_dev = args_on(dev)
+    t_dev = torch.tensor(per, dtype=torch.float64, device=dev)
+    for wave, wt in (("rayleigh", "R"), ("love", "L")):
+        # 1. phase and group kernels against central FD of the solve
+        kr = timed(f"sensitivity_kernels_{wave}_s", sensitivity_kernels,
+                   *a_dev, t_dev, m["nlay"], wave=wave, cfg=fd_cfg)
+        kr = {k: on_card(v) for k, v in kr._asdict().items()}
+        check(kr["valid"].all(), f"sensitivity_kernels {wave}: valid "
+              f"{kr['valid'].tolist()}")
+        errs = {}
+        t0 = time.perf_counter()
+        for which in ("vs", "vp", "rho"):
+            if wave == "love" and which == "vp":
+                continue
+            dc, du = [], []
+            for i in FD_LAYERS:
+                cu = []
+                for sgn in (1, -1):
+                    pert = {k: np.array(m[k], np.float64) for k in keys}
+                    step = 1e-3 * pert[which][i]
+                    pert[which][i] += sgn * step
+                    c, u, ok = surf_forward(*args_on(dev, pert), t_dev,
+                                            m["nlay"], wave=wave, cfg=fd_cfg)
+                    check(bool(ok.all()), f"FD solve {wave} {which} {i}")
+                    cu.append((on_card(c)[:, 0], on_card(u)[:, 0], step))
+                (cp, up, s), (cm, um, _) = cu
+                dc.append((cp - cm) / (2 * s))
+                du.append((up - um) / (2 * s))
+            dc, du = np.array(dc).T, np.array(du).T
+            e_c = (np.abs(kr["dc_d" + which][:, FD_LAYERS] - dc).max()
+                   / (np.abs(dc).max() + 1e-12))
+            errs["dc_d" + which] = e_c
+            check(e_c < FD_PHASE_TOL, f"{wave} dc_d{which} vs FD: {e_c:.3e} "
+                  f"of scale > {FD_PHASE_TOL}")
+            if which != "vp":
+                e_u = (np.abs(kr["du_d" + which][:, FD_LAYERS] - du).max()
+                       / (np.abs(du).max() + 1e-12))
+                errs["du_d" + which] = e_u
+                check(e_u < FD_GROUP_TOL, f"{wave} du_d{which} vs FD: "
+                      f"{e_u:.3e} of scale > {FD_GROUP_TOL}")
+        res[f"fd_{wave}_s"] = round(time.perf_counter() - t0, 3)
+        # 2. the same call on CPU tensors
+        t0 = time.perf_counter()
+        kc = sensitivity_kernels(*args_on("cpu"), torch.tensor(per),
+                                 m["nlay"], wave=wave, cfg=fd_cfg)
+        res[f"sensitivity_kernels_{wave}_cpu_s"] = round(
+            time.perf_counter() - t0, 3)
+        cpu_err = {}
+        for k, v in kc._asdict().items():
+            v = v.numpy()
+            if v.dtype == bool:
+                check(np.array_equal(v, kr[k]), f"{wave} {k}: CPU vs card")
+                continue
+            cpu_err[k] = np.abs(v - kr[k]).max() / max(np.abs(v).max(), 1e-300)
+        log(f"[analysis] sensitivity_kernels {wave}: card vs CPU, of each "
+            "field's max: " + ", ".join(f"{k} {e:.2e}"
+                                        for k, e in cpu_err.items()))
+        for k, e in cpu_err.items():
+            tol = CPU_TOL_GROUP if k.startswith("du_") else CPU_TOL
+            check(e <= tol, f"{wave} {k}: card vs CPU {e:.3e} of max > {tol}")
+        # 3. apparent Q against the TEST1 goldens
+        ref_q = g[f"att_{wt}_0"][gold_rows, 1]
+        e_q = float((np.abs(kr["q_app"] - ref_q) / ref_q).max())
+        check(e_q < Q_APP_TOL, f"{wave} q_app vs golden {e_q:.3e}")
+        log(f"[analysis] sensitivity_kernels {wave} T={per} (float64, "
+            f"{res[f'sensitivity_kernels_{wave}_s']:.3f} s; CPU "
+            f"{res[f'sensitivity_kernels_{wave}_cpu_s']:.3f} s): AD vs FD "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" of scale ({res[f'fd_{wave}_s']:.1f} s of FD solves); card "
+            f"vs CPU {max(cpu_err.values()):.2e} of max; q_app vs golden "
+            f"{e_q:.2e} ({card})")
+    for wave in ("rayleigh", "love"):
+        k2 = timed(f"sensitivity_kernels_{wave}_nmodes2_s",
+                   sensitivity_kernels, *a_dev, t_dev, m["nlay"], wave=wave,
+                   cfg=SurfConfig(nmodes=2))
+        k2 = {k: on_card(v) for k, v in k2._asdict().items()}
+        check(k2["dc_dvs"].shape == (len(per), 2, len(m["h"]))
+              and k2["valid"].all()
+              and all(np.isfinite(v).all() for v in k2.values()),
+              f"sensitivity_kernels {wave} nmodes 2: valid "
+              f"{k2['valid'].tolist()}")
+    log(f"[analysis] sensitivity_kernels nmodes 2, group: Rayleigh "
+        f"{res['sensitivity_kernels_rayleigh_nmodes2_s']:.3f} s, Love "
+        f"{res['sensitivity_kernels_love_nmodes2_s']:.3f} s, all lanes "
+        f"valid and finite ({card})")
+
+    # 4. eigenfunctions and energy integrals at the golden roots
+    per_g = [float(t) for t in m["periods"]]
+    t_g = torch.tensor(per_g, dtype=torch.float64, device=dev)
+    cfg2 = SurfConfig(nmodes=2)
+    for wave, wt in (("rayleigh", "R"), ("love", "L")):
+        cg = torch.tensor(golden_roots(g, wt, per_g), device=dev)
+        reg = timed(f"eigenfunctions_regular_{wave}_s",
+                    eigenfunctions_regular, *a_dev, t_g, m["nlay"],
+                    wave=wave, cfg=cfg2, dz=2.0, nz=500, c_given=cg)
+        reg = {k: on_card(v) for k, v in reg.items()}
+        ei = timed(f"energy_integrals_{wave}_s", energy_integrals, *a_dev,
+                   t_g, m["nlay"], wave=wave, cfg=cfg2, c_given=cg)
+        ei = {k: on_card(v) for k, v in ei.items()}
+        comps = ("v1", "v2") if wt == "R" else ("v1",)
+        names = ("I0", "I1", "I2", "I3") if wt == "R" else ("I0", "I1", "I2")
+        worst = dict(eig=0.0, deig=0.0, ints=0.0, u_int=0.0, c_var=0.0,
+                     flagr=0.0)
+        n_prof = 0
+        for mode in (0, 1):
+            for ip, T in enumerate(int(t) for t in per_g):
+                if wt == "R" and mode == 1 and T == 20:
+                    continue
+                for comp in comps:
+                    key = f"eig_{wt}_{mode}_{T}_{comp}"
+                    if key not in g.files:
+                        continue
+                    ref = g[key]
+                    sel = ref[:, 0] <= reg["z"][-1] + 1e-9
+                    ii = np.round(ref[sel, 0] / 2.0).astype(int)
+                    for col, name, tol in ((1, "eig", EIG_TOL),
+                                           (2, "deig", DEIG_TOL)):
+                        src = reg[comp] if col == 1 else reg["d" + comp]
+                        ours = src[ip, mode][ii]
+                        vref = ref[sel, col]
+                        sign = np.sign(ours[0] * vref[0]) or 1.0
+                        e = (np.abs(sign * ours - vref).max()
+                             / np.abs(ref[:, col]).max())
+                        worst[name] = max(worst[name], e)
+                        check(e < tol, f"{key} col {col}: {e:.3e} > {tol}")
+                    n_prof += 1
+                gi = g[f"eig_{wt}_{mode}_{T}_int"]
+                for j, nm in enumerate(names):
+                    e = abs(ei[nm][ip, mode] - gi[j]) / abs(gi[j])
+                    worst["ints"] = max(worst["ints"], e)
+                    check(e < INT_TOL, f"{wt} m{mode} T={T} {nm}: {e:.3e}")
+                u_g = g[f"grv_{wt}_{mode}"][ip, 1]
+                e = abs(ei["u_int"][ip, mode] - u_g) / u_g
+                worst["u_int"] = max(worst["u_int"], e)
+                check(e < U_INT_TOL, f"{wt} m{mode} T={T} u_int: {e:.3e}")
+                cv_g = g[f"phv_{wt}_{mode}"][ip, 2]
+                e = abs(ei["c_var"][ip, mode] - cv_g) / cv_g
+                worst["c_var"] = max(worst["c_var"], e)
+                check(e < C_VAR_TOL, f"{wt} m{mode} T={T} c_var: {e:.3e}")
+                if not (mode == 1 and T == 20):
+                    om2I0 = (2 * np.pi / T) ** 2 * ei["I0"][ip, mode]
+                    e = abs(ei["flagr"][ip, mode]) / om2I0
+                    worst["flagr"] = max(worst["flagr"], e)
+                    check(e < FLAGR_TOL, f"{wt} m{mode} T={T} flagr {e:.3e}")
+        check(n_prof >= 20, f"{wave}: only {n_prof} golden profiles held")
+        log(f"[analysis] eigenfunctions_regular "
+            f"({res[f'eigenfunctions_regular_{wave}_s']:.3f} s) and "
+            f"energy_integrals ({res[f'energy_integrals_{wave}_s']:.3f} s) "
+            f"{wave}, nmodes 2 at the golden roots, {n_prof} profiles: "
+            "worst " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f" ({card})")
+
+        # 5. kernel densities against the golden tables
+        t0 = time.perf_counter()
+        dens = kernel_densities(*a_dev, t_g, m["nlay"], wave=wave, cfg=cfg2,
+                                dz=2.0, nz=500, group=True, c_given=cg)
+        res[f"kernel_densities_{wave}_s"] = round(time.perf_counter() - t0, 3)
+        cols = ("Kvs", "Kvp", "Krho") if wt == "R" else ("Kvs", "Krho")
+        n_cols, worst_k = 0, {"phv": 0.0, "grv": 0.0}
+        for kind_, modes in (("phv", (0, 1)), ("grv", (0,))):
+            names_k = cols if kind_ == "phv" else tuple(
+                "G" + c[1:] for c in cols if c != "Krho")
+            for mode in modes:
+                tol = KPHV_TOL[mode] if kind_ == "phv" else KGRV_TOL
+                for ip, T in enumerate(int(t) for t in per_g):
+                    key = f"k{kind_}_{wt}_{mode}_{T}"
+                    if (wt == "R" and mode == 1 and T == 20) or \
+                            key not in g.files:
+                        continue
+                    arr = g[key]
+                    sel = (arr[:, 0] <= DEPTH_CAP) & (arr[:, 0] > 0)
+                    ii = np.round(arr[sel, 0] / 2.0).astype(int)
+                    for icol, name in enumerate(names_k):
+                        ours = dens[name][ip, mode][ii]
+                        e = (np.abs(ours - arr[sel, 1 + icol]).max()
+                             / np.abs(arr[:, 1 + icol]).max())
+                        worst_k[kind_] = max(worst_k[kind_], e)
+                        check(e < tol, f"{key} {name}: {e:.3e} > {tol}")
+                        n_cols += 1
+        check(n_cols >= 10 * len(cols), f"{wave}: {n_cols} density columns")
+        log(f"[analysis] kernel_densities {wave} group=True "
+            f"({res[f'kernel_densities_{wave}_s']:.3f} s), {n_cols} golden "
+            f"columns: worst phase {worst_k['phv']:.2e}, group "
+            f"{worst_k['grv']:.2e} of the golden max ({card})")
+
+    # 6. the user-facing classes on a dict model, on the card by default
+    model = {"H": g["model_h"], "Vp": g["model_vp"], "Vs": g["model_vs"],
+             "Rho": g["model_rho"], "Qs": g["model_qs"]}
+    kw = dict(wtype="R", Tmin=10, Tmax=60, Tstep=10, endmode=1)
+    for method in ("ad", "eigen"):
+        sk = timed(f"senskernel_{method}_s", SensKernel, model=dict(model),
+                   method=method, **kw, **dkw)
+        solved = sk.c > 0                                   # (nper, M)
+        fin = all(np.isfinite(k[mode, :, ip]).all()
+                  for k in (sk.kernel_phv, sk.kernel_grv)
+                  for ip, mode in zip(*np.nonzero(solved)))
+        check(solved.all() and fin, f"SensKernel {method}: solved "
+              f"{solved.tolist()}, finite where solved {fin}")
+        log(f"[analysis] SensKernel(method={method!r}) 68 layers, T 10-60 s, "
+            f"endmode 1: {res[f'senskernel_{method}_s']:.3f} s, kernel_phv "
+            f"{sk.kernel_phv.shape} finite ({card})")
+    top = {k: np.asarray(v, float)[:12].copy() for k, v in model.items()}
+    pk = timed("senskernel_pert_s", SensKernelPert, model=top, wtype="R",
+               Tmin=10, Tmax=60, Tstep=10, **dkw)
+    check(sorted(pk.kernel) == ["Vp", "Vs"]
+          and all(np.isfinite(v).all() and np.abs(v).max() > 0
+                  for v in pk.kernel.values()),
+          "SensKernelPert: kernels not finite")
+    log(f"[analysis] SensKernelPert first 12 layers, T 10-60 s: "
+        f"{res['senskernel_pert_s']:.3f} s ({2 * 2 * 12} single-model "
+        f"solves), Vs and Vp kernels finite ({card})")
     return res
 
 

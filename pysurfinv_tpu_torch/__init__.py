@@ -2,9 +2,10 @@
 
 The batched surface-wave dispersion solve of the JAX package (one wave,
 or both with ``surf_forward_joint``), the single-model solve with
-overtones, the batched MCMC sampler and the host inversion surface, on
-PyTorch tensors, with the four secular-function kernels written by hand
-in CUDA C++ for Hopper (``csrc/``).  Module paths mirror the JAX
+overtones, the batched MCMC sampler, the host inversion surface and the
+analysis surface (sensitivity kernels, eigenfunctions, energy integrals,
+``SensKernel``), on PyTorch tensors, with the four secular-function
+kernels written by hand in CUDA C++ for Hopper (``csrc/``).  Module paths mirror the JAX
 package so each counterpart is easy to find; the JAX package is the
 reference the port is tested against and is never imported here.
 
@@ -26,8 +27,8 @@ from pysurfinv_tpu_torch.ops.dispersion import (  # noqa: F401
 
 
 def __getattr__(name):
-    """Lazy re-exports of the model layer and the sampler (they pull in
-    scipy)."""
+    """Lazy re-exports of the model layer, the sampler (they pull in
+    scipy) and the analysis surface."""
     _lazy = {
         "buildModel1D": "pysurfinv_tpu_torch.models.model1d",
         "Model1D": "pysurfinv_tpu_torch.models.model1d",
@@ -42,6 +43,11 @@ def __getattr__(name):
         "PostPointCascadia": "pysurfinv_tpu_torch.inversion.point",
         "fast_surf": "pysurfinv_tpu_torch.compat",
         "invert_grid": "pysurfinv_tpu_torch.parallel.grid",
+        "SensKernel": "pysurfinv_tpu_torch.senskernel",
+        "SensKernelPert": "pysurfinv_tpu_torch.senskernel",
+        "sensitivity_kernels": "pysurfinv_tpu_torch.ops.kernels",
+        "eigenfunctions": "pysurfinv_tpu_torch.ops.eigen",
+        "eigenfunctions_regular": "pysurfinv_tpu_torch.ops.eigen",
     }
     if name in _lazy:
         import importlib

@@ -91,15 +91,21 @@ PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
                 "pysurfinv_tpu_torch.inversion.compiled",
                 "pysurfinv_tpu_torch.inversion.mcmc",
                 "pysurfinv_tpu_torch.inversion.point",
-                "pysurfinv_tpu_torch.parallel.grid")
+                "pysurfinv_tpu_torch.parallel.grid",
+                "pysurfinv_tpu_torch.ops.kernels",
+                "pysurfinv_tpu_torch.ops.eigen",
+                "pysurfinv_tpu_torch.senskernel",
+                "pysurfinv_tpu_torch.data.prem")
 
 
 def test_port_imports_no_jax():
-    """The port's modules, their lazy exports (PostPoint, fast_surf) and
-    chip_smoke.py, which runs where JAX is absent, import neither JAX nor
-    the JAX package."""
+    """The port's modules, their lazy exports (PostPoint, fast_surf, the
+    analysis surface) and chip_smoke.py, which runs where JAX is absent,
+    import neither JAX nor the JAX package."""
     code = ("import sys, runpy, " + ", ".join(PORT_MODULES) + "; "
             "from pysurfinv_tpu_torch import PostPoint, fast_surf; "
+            "from pysurfinv_tpu_torch import SensKernel, sensitivity_kernels, "
+            "eigenfunctions_regular; "
             "from pysurfinv_tpu_torch.inversion.point import "
             "PostPointCascadia; "
             "runpy.run_path('chip_smoke.py', run_name='chip_smoke'); "
