@@ -25,7 +25,12 @@ Drives the port's two main paths through the entry points a user calls:
     reference's example setting (examples/invert_point.py:21-51),
     sedthk and lithoAge from default_rng(0), runN 6000 with chainL 200
     (1,920 lanes), 18 periods, segment 100, seed 1 — with the default
-    solver (newton_sep 3) and with ``PYSURFINV_MCMC_NNEWTON=2``.
+    solver (newton_sep 3), checkpointed and resumed, split into two lane
+    ranges, and with ``PYSURFINV_MCMC_NNEWTON=2``; the streamed npz
+    writer and the posterior comparator on its files;
+  * the per-chain legacy sampler, and the 3-D host analysis ``Model3D``
+    (maps, profiles, sections, smoothing, phase-velocity QC) on the
+    flagship run's 64 files.
 
 Phases, each of which raises on failure:
 
@@ -93,14 +98,35 @@ Phases, each of which raises on failure:
               finite where solved; the seconds of each call;
   5. sampler  on 2 points x 4 chains x 10 steps the sampler with the
               kernels gives the tracks of the sampler with the plain
-              versions; then the flagship workload twice with the default
-              solver (the second call timed:
-              mcmc_effective_solves_per_sec = 64 * 6000 / seconds) and
-              once with PYSURFINV_MCMC_NNEWTON=2 (NEWTON_SEP=0, which the
-              variable needs to take effect): every npz written, every
-              misfit finite, the acceptance rate printed, the expected
-              launch counters moved; a torch.profiler trace (CUDA
+              versions; then the flagship workload four times, each run
+              with every launch count set to 0 just before it: the first
+              call checkpointed and killed after its first segment, then
+              resumed from the checkpoint (the seconds of each half and
+              the checkpoint's size printed); the timed call with the
+              default solver (mcmc_effective_solves_per_sec = 64 * 6000 /
+              seconds), whose tracks the resumed run must equal bit for
+              bit and whose files are written by the streamed writer; the
+              lanes split into two ranges on ``["cuda:0", "cuda:0"]``,
+              one spawned process each (the kernel launches counted in
+              the ranges' processes), tracks bit for bit the timed
+              call's; and PYSURFINV_MCMC_NNEWTON=2 (NEWTON_SEP=0, which
+              the variable needs to take effect): every npz written,
+              every misfit finite, the acceptance rate printed, the
+              expected launch counters moved; the timed call's 64 files
+              rewritten by the savez_fast path load equal, array by
+              array (both write times printed); the posterior comparator
+              on the timed and nnewton2 runs (every z-score finite; the
+              p-value printed, not gated); a torch.profiler trace (CUDA
               activity) of a 6-row run gives the device idle share;
+  5b. survey  the legacy sampler (Point.MCinvMP(sampler="legacy"), 1 point
+              x 2 chains x 4 steps, 5 periods) on the card against the
+              same call on CPU tensors (accepts equal, thetas to 1e-10,
+              misfits to 1e-9 relative); Model3D on the timed run's 64 files on
+              the card: all 64 points loaded, genVsMap(50) finite on all
+              64 nodes, vsProfile and a section, smooth and smoothGrid
+              against the same calls with CPU tensors (1e-12 of each
+              field's max), checkPhaseVelocity(pers=[10, 50]), write /
+              load; the seconds of each step;
   6. time     solves/s per run and the joint solve's R+L curve pairs/s
               beside the independent Rayleigh + Love solves, each
               kernel's time beside its plain
@@ -115,9 +141,10 @@ Phases, each of which raises on failure:
 
 Prints the card line and a JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``.  Run from the repository
-root: ``python3 chip_smoke.py``; it takes about ten minutes on an H100,
-most of them in the sampler's host-bound runs, the plain versions'
-timings and the analysis phase's eager float64 calls (~1 minute).
+root: ``python3 chip_smoke.py``; it takes about twelve minutes on an
+H100, most of them in the sampler's host-bound runs, Model3D's 128
+single-model float64 solves, the plain versions' timings and the
+analysis phase's eager float64 calls (~1 minute).
 """
 
 import json
@@ -613,8 +640,13 @@ def main():
     analysis = analysis_phase(dev, card)
     mark("analysis")
     # ---- 5. the sampler ----------------------------------------------
-    launches_mc, mc = sampler_phase(sl, card)
+    launches_mc, mc, mc_dir = sampler_phase(sl, card)
     mark("sampler")
+    # ---- 5b. the legacy sampler and the 3-D host analysis -------------
+    mc["legacy"] = legacy_check(dev, card)
+    mark("legacy")
+    mc["model3d"] = model3d_phase(mc_dir, dev, card)
+    mark("model3d")
 
     # ---- 6. time -----------------------------------------------------
     solves, solve_ms = {}, {}
@@ -803,6 +835,10 @@ def main():
             launches_solve_path=launches_solve[name],
             launches_sampler_path=launches_mc[name],
             launches_joint_path=launches_joint[name],
+            launches_by_sampler_run={
+                r: mc[r]["launches"][name]
+                for r in ("default_first_call", "default", "lane_ranges",
+                          "nnewton2")},
             love_ms=lms, love_plain_ms=lpms, love_bound_ms=lbms,
             shape=f"K={33 if name == 'secular_lanes' else 18},B={B_SLICE},"
                   f"L={L}", bitwise=bits[name],
@@ -874,7 +910,8 @@ def read_tracks(paths):
 
 def sampler_phase(sl, card):
     """Phase 5: the batched MCMC sampler on the card.  Returns the
-    sampler path's launch counts (every run summed) and its numbers."""
+    sampler path's launch counts (every run summed), its numbers and the
+    directory of the timed run's files."""
     import torch
     from unittest import mock
 
@@ -908,32 +945,26 @@ def sampler_phase(sl, card):
         f"{dmis:.3e}, bitwise {bool(np.array_equal(a, b))} ({card})")
 
     launches = {k.__name__: 0 for k in sl.KERNELS}
-    res = {}
-    runs = (("default_first_call", {}), ("default", {}),
-            ("nnewton2", {"PYSURFINV_MCMC_NNEWTON": "2",
-                          "PYSURFINV_MCMC_NEWTON_SEP": "0"}))
-    for name, env in runs:
+    res, tracks = {}, {}
+    flagship = dict(runN=MC_RUN_N, chainL=MC_CHAIN_L, seed=MC_SEED,
+                    segment=MC_SEGMENT, verbose=False)
+    need_default = ("secular_lanes", "secular_lanes_frozen",
+                    "secular_lanes_grad")
+
+    def drive(name, call, need, env=None):
+        """Run ``call`` (-> (paths, launch counts)) with every count set
+        to 0 just before; check the counts, the files and the tracks."""
         sl.reset_launch_counts()
-        with mock.patch.dict(os.environ, env):
+        with mock.patch.dict(os.environ, env or {}):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            paths = grid.invert_grid(pts, lls, outdir=f"{out}/{name}",
-                                     runN=MC_RUN_N, chainL=MC_CHAIN_L,
-                                     seed=MC_SEED, segment=MC_SEGMENT,
-                                     verbose=False)
+            paths, got = call()
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
-        got = {k.__name__: k.launches for k in sl.KERNELS}
         for k, n in got.items():
             launches[k] += n
-        need = (("secular_lanes", "refine_lanes") if name == "nnewton2"
-                else ("secular_lanes", "secular_lanes_frozen",
-                      "secular_lanes_grad"))
         for k in need:
             check(got[k] > 0, f"sampler run {name}: {k} was not launched")
-        if name == "nnewton2":
-            check(got["secular_lanes_grad"] == 0,
-                  "sampler run nnewton2 still took the newton_sep path")
         check(len(paths) == MC_POINTS and all(os.path.exists(p)
                                               for p in paths),
               f"sampler run {name}: npz files missing")
@@ -946,16 +977,110 @@ def sampler_phase(sl, card):
         acc = float(tr[..., 2].mean())
         rate = MC_POINTS * MC_RUN_N / sec
         res[name] = dict(seconds=round(sec, 2), solves_per_sec=round(rate, 1),
-                         acceptance=round(acc, 4), failed_rows=fails)
+                         acceptance=round(acc, 4), failed_rows=fails,
+                         launches=got)
+        tracks[name] = (paths, tr)
         log(f"[sampler] {name}: {MC_POINTS} points x {MC_RUN_N // MC_CHAIN_L}"
             f" chains x {MC_CHAIN_L} steps ({lanes} lanes): {sec:.2f} s, "
             f"{rate:.1f} effective solves/s, acceptance {acc:.4f}, "
             f"{fails} rows with a failed solve, min misfit "
             f"{float(tr[..., 0].min()):.4f}, launches {got} ({card})")
+
+    def counts():
+        return {k.__name__: k.launches for k in sl.KERNELS}
+
+    # the first call: checkpointed, killed after its first segment (the
+    # test hook raises KeyboardInterrupt), then resumed from the file
+    ck = f"{out}/resume.ck.npz"
+    halves = {}
+
+    def first_call():
+        t0 = time.perf_counter()
+        try:
+            grid.invert_grid(pts, lls, outdir=f"{out}/resume", checkpoint=ck,
+                             _abort_after_segments=1, **flagship)
+        except KeyboardInterrupt:
+            pass
+        else:
+            check(False, "the checkpointed run did not stop after its "
+                  "first segment")
+        halves["first"] = time.perf_counter() - t0
+        halves["checkpoint_bytes"] = os.path.getsize(ck)
+        t0 = time.perf_counter()
+        paths = grid.invert_grid(pts, lls, outdir=f"{out}/resume",
+                                 checkpoint=ck, resume=True, **flagship)
+        halves["resumed"] = time.perf_counter() - t0
+        return paths, counts()
+
+    drive("default_first_call", first_call, need_default)
+    res["default_first_call"].update(
+        first_half_s=round(halves["first"], 2),
+        resumed_half_s=round(halves["resumed"], 2),
+        checkpoint_bytes=halves["checkpoint_bytes"])
+    log(f"[sampler] checkpoint/resume (first call): {halves['first']:.2f} s "
+        f"to the kill after segment 1 of {MC_CHAIN_L // MC_SEGMENT}, "
+        f"checkpoint {halves['checkpoint_bytes']} bytes, resumed half "
+        f"{halves['resumed']:.2f} s ({card})")
+
+    write_s = {}
+
+    def timed_call():
+        stats = {}
+        paths = grid.invert_grid(pts, lls, outdir=f"{out}/default",
+                                 stats=stats, **flagship)
+        write_s["streamed"] = stats["write"]
+        return paths, counts()
+
+    drive("default", timed_call, need_default)
+    same = np.array_equal(tracks["default_first_call"][1],
+                          tracks["default"][1])
+    check(same, "the resumed run's tracks differ from the uninterrupted "
+          "run's")
+    log(f"[sampler] resumed tracks bitwise equal to the timed "
+        f"uninterrupted call's: {same} ({card})")
+
+    def ranges_call():
+        stats = {}
+        paths = grid.invert_grid(pts, lls, outdir=f"{out}/ranges",
+                                 device=["cuda:0", "cuda:0"], stats=stats,
+                                 **flagship)
+        rng = stats["ranges"]
+        check(len(rng) == 2, f"lane ranges: {len(rng)} ranges ran, not 2")
+        for r in rng:
+            for k in need_default:
+                check(r["launches"][k] > 0, f"lane range {r['lanes']}: {k} "
+                      "was not launched in its process")
+        res["ranges_detail"] = [dict(lanes=r["lanes"], device=r["device"],
+                                     seconds=round(r["seconds"], 2),
+                                     launches=r["launches"]) for r in rng]
+        # the ranges' processes launched the kernels; this one none
+        return paths, {k: sum(r["launches"][k] for r in rng)
+                       for k in counts()}
+
+    drive("lane_ranges", ranges_call, need_default)
+    same = np.array_equal(tracks["lane_ranges"][1], tracks["default"][1])
+    check(same, "the lane-range run's tracks differ from the one-range "
+          "run's")
+    log(f"[sampler] lane ranges {res['ranges_detail']}: tracks bitwise "
+        f"equal to the timed one-range call's: {same} ({card})")
+
+    drive("nnewton2",
+          lambda: (grid.invert_grid(pts, lls, outdir=f"{out}/nnewton2",
+                                    **flagship), counts()),
+          ("secular_lanes", "refine_lanes"),
+          env={"PYSURFINV_MCMC_NNEWTON": "2",
+               "PYSURFINV_MCMC_NEWTON_SEP": "0"})
+    check(res["nnewton2"]["launches"]["secular_lanes_grad"] == 0,
+          "sampler run nnewton2 still took the newton_sep path")
     log(f"[sampler] mcmc_effective_solves_per_sec (second call, newton_sep"
         f" 3): {res['default']['solves_per_sec']}; first call "
         f"{res['default_first_call']['seconds']} s; nnewton2 "
         f"{res['nnewton2']['solves_per_sec']} ({card})")
+
+    res["write"] = writer_check(grid, pts, lls, out, tracks["default"],
+                                write_s["streamed"], card)
+    res["posterior"] = posterior_check(tracks["default"][0],
+                                       tracks["nnewton2"][0], card)
 
     # one short run under the profiler: device busy share of the steps
     from torch.profiler import ProfilerActivity, profile
@@ -1006,7 +1131,184 @@ def sampler_phase(sl, card):
     log(f"[sampler] host profile of the same 6-row run (cProfile, "
         f"{wall:.3f} s): cumulative s by function: " + "; ".join(
             f"{k} {v:.3f}" for k, v in top) + f" ({card})")
-    return launches, res
+    return launches, res, f"{out}/default"
+
+
+def writer_check(grid, pts, lls, out, default, streamed_s, card):
+    """The streamed npz writer: the timed run's 64 files (rows deflated
+    lane by lane during the segments, assembled without recompression)
+    rewritten by the ``PYSURFINV_STREAM_NPZ=0`` path (``savez_fast``);
+    every array must load equal.  Returns the write seconds."""
+    paths, tr = default
+    lanes = tr.reshape(MC_POINTS * (MC_RUN_N // MC_CHAIN_L), MC_CHAIN_L, -1)
+    t0 = time.perf_counter()
+    plain = grid.write_chain_files(pts, lls, f"{out}/savez", lanes,
+                                   MC_CHAIN_L)
+    savez_s = time.perf_counter() - t0
+    sizes = [sum(os.path.getsize(p) for p in ps) for ps in (paths, plain)]
+    for a, b in zip(paths, plain):
+        da, db = (np.load(x, allow_pickle=True) for x in (a, b))
+        check(sorted(da.files) == sorted(db.files),
+              f"streamed {a}: entries {da.files} vs {db.files}")
+        check(np.array_equal(da["mcTrack"], db["mcTrack"])
+              and da["mcTrack"].dtype == db["mcTrack"].dtype,
+              f"streamed {a}: mcTrack differs from the savez_fast file's")
+        for k in ("setting", "obs", "invMeta"):
+            check(repr(da[k][()]) == repr(db[k][()]),
+                  f"streamed {a}: {k} differs from the savez_fast file's")
+    log(f"[sampler] npz write of the timed run's {len(paths)} files: "
+        f"streamed {streamed_s:.3f} s (assembly; the deflation ran during "
+        f"the segments), savez_fast {savez_s:.3f} s; every array loads "
+        f"equal; {sizes[0]} vs {sizes[1]} bytes ({card})")
+    return dict(streamed_s=round(streamed_s, 3),
+                savez_fast_s=round(savez_s, 3), streamed_bytes=sizes[0], savez_fast_bytes=sizes[1])
+
+
+def posterior_check(files_a, files_b, card):
+    """The posterior comparator on two solver settings of one posterior
+    (the timed run, newton_sep 3, and the nnewton2 run): every chain
+    statistic's z-score finite; the verdict printed, not gated (a 1% test
+    refuses 1% of honest runs)."""
+    from pysurfinv_tpu_torch.inversion.parity import (chain_statistics,
+                                                      compare_posteriors,
+                                                      pooled_threshold)
+    t0 = time.perf_counter()
+    thres = pooled_threshold([files_a, files_b])
+    sa, _ = chain_statistics(files_a, thres=thres)
+    sb, _ = chain_statistics(files_b, thres=thres)
+    verdict = compare_posteriors(sa, sb, n_perm=2000)
+    sec = time.perf_counter() - t0
+    zs = np.array(list(verdict["z"].values()))
+    check(len(zs) == len(sa) and bool(np.isfinite(zs).all()),
+          f"posterior comparator: non-finite z-scores {verdict['z']}")
+    check(all(0 <= verdict[k] <= 1 for k in ("p_max", "p_rms", "p_mean",
+                                             "p_value")),
+          "posterior comparator: p-values outside [0, 1]")
+    conv = (float(np.mean(sa["converged"])), float(np.mean(sb["converged"])))
+    out = dict(p_value=verdict["p_value"], max_abs_z=verdict["max_abs_z"],
+               worst=verdict["worst"], n_a=verdict["n_a"],
+               n_b=verdict["n_b"], threshold=thres,
+               converged_share=conv, seconds=round(sec, 2))
+    log(f"[posterior] default vs nnewton2 (chain statistics of "
+        f"{verdict['n_a']} + {verdict['n_b']} chains, pooled threshold "
+        f"{thres:.4f}, converged share {conv[0]:.3f} / {conv[1]:.3f}): "
+        + json.dumps(out) + f" ({card})")
+    return out
+
+
+def legacy_check(dev, card):
+    """The per-chain legacy sampler through Point.MCinvMP: 1 point x 2
+    chains x 4 steps on 5 periods on the card, against the same call on
+    CPU tensors (accepts equal, thetas to 1e-10, misfits to 1e-9
+    relative)."""
+    from pysurfinv_tpu_torch.inversion.point import PointCascadia
+    out = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    sub = slice(0, 18, 4)
+    tr, secs = {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        p = PointCascadia(MC_SETTING, dict(MC_LOCAL), periods=PERIODS[sub],
+                          vels=MC_VELS[sub], uncers=MC_UNCERS[sub])
+        t0 = time.perf_counter()
+        p.MCinvMP(f"{out}/{name}", pid="p", runN=8, chainL=4, seed=MC_SEED,
+                  sampler="legacy", verbose=False, device=device)
+        secs[name] = time.perf_counter() - t0
+        tr[name] = np.load(f"{out}/{name}/p.npz",
+                           allow_pickle=True)["mcTrack"]
+    a, b = tr["card"], tr["cpu"]
+    check(a.shape == b.shape == (8, 9) and bool(np.isfinite(a).all()),
+          f"legacy sampler: tracks {a.shape} / {b.shape}")
+    # the proposals' erfinv / exp round differently in the card's libm and
+    # the CPU's: thetas to 1e-10 (the CPU tests' tolerance against JAX)
+    dth = float(np.abs(a[:, 3:] - b[:, 3:]).max())
+    same_acc = bool(np.array_equal(a[:, 2], b[:, 2]))
+    rel = float(np.max(np.abs(a[:, 0] - b[:, 0]) / np.abs(b[:, 0])))
+    check(same_acc and dth <= 1e-10 and rel <= 1e-9,
+          f"legacy sampler on the card vs the CPU: accepts equal "
+          f"{same_acc}, max|dtheta| {dth:.3e}, misfit rel err {rel:.3e}")
+    log(f"[legacy] Point.MCinvMP(sampler='legacy') 1 point x 2 chains x 4 "
+        f"steps, 5 periods (8 single-model float64 solves): card "
+        f"{secs['card']:.3f} s, CPU {secs['cpu']:.3f} s; accepts equal, "
+        f"max|dtheta| {dth:.3e} (bitwise {bool(np.array_equal(a, b))}), "
+        f"max misfit rel err {rel:.3e}, acceptance "
+        f"{float(a[:, 2].mean()):.3f} ({card})")
+    return dict(card_s=round(secs["card"], 3), cpu_s=round(secs["cpu"], 3),
+                theta_abs_err=dth, misfit_rel_err=rel)
+
+
+def model3d_phase(invdir, dev, card):
+    """Model3D on the timed sampler run's 64 files, on the card: every
+    point loaded (a skipped point fails the phase), Vs map, profile,
+    section, smoothing (parameter space and physical grids) against the
+    same calls with CPU tensors to 1e-12 of each field's max, the
+    phase-velocity QC maps and the write / load round trip."""
+    from pysurfinv_tpu_torch.geo.model3d import Model3D
+    secs = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return r
+
+    m3 = Model3D(device=dev)
+    n = timed("loadInvDir", m3.loadInvDir, invdir)
+    check(n == MC_POINTS and not m3.skipped and (~m3.mask).sum() == n,
+          f"Model3D.loadInvDir loaded {n} of {MC_POINTS} points, skipped "
+          f"{m3.skipped}")
+    vs50 = timed("genVsMap", m3.genVsMap, 50.0)
+    check(int(np.isfinite(vs50.zMasked.filled(np.nan)).sum()) == MC_POINTS,
+          "Model3D.genVsMap(50): not finite on every loaded node")
+    prof = timed("vsProfile", m3.vsProfile, np.array([10.0, 50.0, 150.0]),
+                 45.05, 228.05)
+    check(prof.shape == (3,) and bool(np.isfinite(prof).all()),
+          f"Model3D.vsProfile: {prof}")
+    _, _, Z, moho, _ = timed("section", m3.section, 228.0, 45.0, 228.7,
+                             45.7, y=np.linspace(0, 180, 19))
+    check(Z.shape == (19, 301) and bool(np.isfinite(Z).any())
+          and bool(np.isfinite(moho).any()), "Model3D.section: no values")
+    qc = timed("checkPhaseVelocity", m3.checkPhaseVelocity, pers=[10, 50])
+    check(set(qc) == {10, 50} and all(
+        int(np.isfinite(qc[p]["resid_norm"].filled(np.nan)).sum())
+        == MC_POINTS for p in qc), "Model3D.checkPhaseVelocity: maps")
+
+    def fields(m, grid_props):
+        """Each smoothed field stacked over the loaded nodes."""
+        out = []
+        for i, j in np.argwhere(~m.mask):
+            mod = m.mods[i][j]
+            out.append(np.array(mod.seisPropGrids(hLowerLimit=-1)[:-1])
+                       if grid_props else np.asarray(mod._brownians()))
+        return np.stack(out)
+
+    errs = {}
+    for name, kw in (("smooth", dict(width=50)),
+                     ("smoothGrid", dict(width=50))):
+        on_card, on_cpu = m3.copy(), m3.copy()
+        on_cpu.device = "cpu"
+        timed(name, getattr(on_card, name), **kw)
+        getattr(on_cpu, name)(**kw)
+        a, b = (fields(m, name == "smoothGrid") for m in (on_card, on_cpu))
+        check(a.shape == b.shape and bool(np.isfinite(a).all()),
+              f"Model3D.{name}: fields {a.shape} / {b.shape}")
+        axes = tuple(range(a.ndim - 1)) if name == "smooth" else (0, 2)
+        scale = np.abs(b).max(axis=axes)
+        err = float((np.abs(a - b).max(axis=axes)
+                     / np.where(scale > 0, scale, 1.0)).max())
+        check(err <= 1e-12, f"Model3D.{name} on the card vs the CPU: "
+              f"{err:.3e} of a field's max > 1e-12")
+        errs[name] = err
+    f = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_m3d_"), "m3.npz")
+    timed("write", m3.write, f)
+    back = Model3D(device=dev)
+    timed("load", back.load, f)
+    check(np.array_equal(back.genVsMap(50.0).zMasked.filled(np.nan),
+                         vs50.zMasked.filled(np.nan), equal_nan=True),
+          "Model3D write/load: the Vs map changed")
+    log(f"[model3d] {n} of {MC_POINTS} points loaded ({len(m3.lats)} x "
+        f"{len(m3.lons)} grid; {2 * n} single-model float64 solves); "
+        f"seconds {json.dumps(secs)}; smoothing card vs CPU (of each "
+        f"field's max) {json.dumps(errs)} ({card})")
+    return dict(points=n, seconds=secs, smoothing_err=errs)
 
 
 def sampler_size_times(sl, kern, sub, nlay, root, tk, wave, n_ill,

@@ -2,9 +2,12 @@
 
 The batched surface-wave dispersion solve of the JAX package (one wave,
 or both with ``surf_forward_joint``), the single-model solve with
-overtones, the batched MCMC sampler, the host inversion surface and the
+overtones, the MCMC samplers (batched and per-chain) with
+``invert_grid``'s checkpoints, lane ranges over several devices and
+streamed npz writer, the host inversion surface, the posterior comparator, the
 analysis surface (sensitivity kernels, eigenfunctions, energy integrals,
-``SensKernel``), on PyTorch tensors, with the four secular-function
+``SensKernel``) and the 3-D host analysis (``Model3D``, ``geo/``), on
+PyTorch tensors, with the four secular-function
 kernels written by hand in CUDA C++ for Hopper (``csrc/``).  Module paths mirror the JAX
 package so each counterpart is easy to find; the JAX package is the
 reference the port is tested against and is never imported here.
@@ -28,10 +31,11 @@ from pysurfinv_tpu_torch.ops.dispersion import (  # noqa: F401
 
 def __getattr__(name):
     """Lazy re-exports of the model layer, the sampler (they pull in
-    scipy) and the analysis surface."""
+    scipy), the analysis surface and the 3-D host analysis."""
     _lazy = {
         "buildModel1D": "pysurfinv_tpu_torch.models.model1d",
         "Model1D": "pysurfinv_tpu_torch.models.model1d",
+        "PureGird": "pysurfinv_tpu_torch.models.model1d",
         "buildSeisLayer": "pysurfinv_tpu_torch.models.layers",
         "BrownianVar": "pysurfinv_tpu_torch.models.brownian",
         "BrownianVarMC": "pysurfinv_tpu_torch.models.brownian",
@@ -43,6 +47,8 @@ def __getattr__(name):
         "PostPointCascadia": "pysurfinv_tpu_torch.inversion.point",
         "fast_surf": "pysurfinv_tpu_torch.compat",
         "invert_grid": "pysurfinv_tpu_torch.parallel.grid",
+        "points_devices": "pysurfinv_tpu_torch.parallel.mesh",
+        "Model3D": "pysurfinv_tpu_torch.geo.model3d",
         "SensKernel": "pysurfinv_tpu_torch.senskernel",
         "SensKernelPert": "pysurfinv_tpu_torch.senskernel",
         "sensitivity_kernels": "pysurfinv_tpu_torch.ops.kernels",

@@ -1,9 +1,9 @@
 """Time-major batched Metropolis sampler over lanes of (point, chain).
 
-Counterpart of the JAX package's ``inversion/mcmc.py`` (its batched
-sampler; the per-chain "legacy" kernel ``make_chain_kernel`` /
-``run_chains`` is not ported, see ROADMAP.md).  Reference semantics
-(point.py:32-125):
+Counterpart of the JAX package's ``inversion/mcmc.py``: the batched
+sampler, and the per-chain "legacy" kernel ``make_chain_kernel`` /
+``run_chains`` with the JAX package's key tree, its chains run as lanes
+(see :func:`make_chain_kernel`).  Reference semantics (point.py:32-125):
 
   * proposal — every Brownian parameter takes a Gaussian step rejected
     until in bounds (brownian.py:20-27) == a truncated normal, drawn
@@ -306,3 +306,94 @@ def make_batched_sampler(isgood, chi_sqr_batch, cfg: ChainConfig):
         return rows.transpose(0, 1)
 
     return run
+
+
+def make_chain_kernel(isgood, chi_sqr, cfg: ChainConfig):
+    """The per-chain ("legacy") sampler, its chains run as lanes.
+
+    Counterpart of the JAX package's ``make_chain_kernel``, which runs
+    one chain as a ``lax.scan`` (vmapped over chains) with the JAX key
+    tree: ``(k0, ks) = split(key)``, the start model from ``k0`` (``(k1,
+    k2) = split(k0)``: a uniform draw from ``k2`` made prior-accepted by
+    :func:`_propose` on ``k1`` with one perturbation round), and step
+    ``i`` from ``split(ks, chain_len - 1)[i]`` as ``(k_prop, k_acc)``.
+    Here every chain is a lane of one loop: the proposals of all lanes
+    run in :func:`_propose` (each lane keeps its own key chain, so its
+    draws are those of the JAX ``while_loop``), and ``chi_sqr`` gets the
+    batch of proposals.
+
+    Args:
+      isgood:  (thetas (N, P), ctx) -> (N,) bool.
+      chi_sqr: (thetas (N, P), ctx) -> (misfit, chiSqr, L), each (N,);
+               never called in priori mode.
+      cfg:     ChainConfig.
+
+    Returns ``run(keys, spec_b, ctx_b, theta_init_b, use_init_b) ->
+    track`` of shape (N, chain_len, 3 + P): columns [misfit, L,
+    accepted, theta]; every argument has a leading lane axis N.
+    """
+
+    def eval_misfit(thetas, ctx):
+        if cfg.priori:
+            z = torch.zeros(thetas.shape[0], dtype=thetas.dtype,
+                            device=thetas.device)
+            return z, z, torch.ones_like(z)
+        return chi_sqr(thetas, ctx)
+
+    def run(keys, spec_b, ctx_b, theta_init_b, use_init_b):
+        dtype = spec_b.theta0.dtype
+        k0ks = R.split(keys)
+        k0, ks = k0ks[:, 0], k0ks[:, 1]
+        k12 = R.split(k0)
+        th_r, _ = _propose(k12[:, 0],
+                           uniform_reset(k12[:, 1], spec_b.vmin, spec_b.vmax,
+                                         dtype),
+                           spec_b, ctx_b, isgood,
+                           cfg._replace(n_perturb_rounds=1))
+        theta = torch.where(use_init_b[:, None], theta_init_b, th_r)
+        misfit, chi, L = eval_misfit(theta, ctx_b)
+        one = torch.ones_like(misfit)
+        rows = [torch.cat([torch.stack([misfit, L, one], dim=1), theta],
+                          dim=1)]
+        step_keys = R.split(ks, cfg.chain_len - 1)
+        for i in range(cfg.chain_len - 1):
+            kpa = R.split(step_keys[:, i])
+            theta1, ok = _propose(kpa[:, 0], theta, spec_b, ctx_b, isgood,
+                                  cfg)
+            if cfg.priori:
+                z = torch.zeros_like(misfit)
+                rows.append(torch.cat([torch.stack([z, z, one], dim=1),
+                                       theta1], dim=1))
+                theta = theta1
+                continue
+            m1, chi1, L1 = eval_misfit(theta1, ctx_b)
+            u = R.uniform(kpa[:, 1], (), dtype=dtype)
+            accept = (chi1 < chi) | (u > 1.0 - torch.exp(-(chi1 - chi) / 2.0))
+            accept = accept & ok & (m1 < cfg.misfit_fail)
+            rows.append(torch.cat([torch.stack([m1, L1, accept.to(dtype)],
+                                               dim=1), theta1], dim=1))
+            theta = torch.where(accept[:, None], theta1, theta)
+            misfit = torch.where(accept, m1, misfit)
+            chi = torch.where(accept, chi1, chi)
+            L = torch.where(accept, L1, L)
+        return torch.stack(rows, dim=1)
+
+    return run
+
+
+def run_chains(kernel, key, spec, ctx, n_chains: int):
+    """One point's chains through the legacy kernel: chain 0 starts from
+    theta0, the others from uniform draws (the MCinvMP layout,
+    point.py:101-102), with the keys ``split(key, n_chains)``.
+
+    ``key`` is one (2,) key; ``spec`` the point's BrownianSpec of (P,)
+    tensors; ``ctx`` a tuple of the point's context tensors, each
+    repeated to the chains here.  Returns (n_chains, chain_len, 3 + P).
+    """
+    keys = R.split(key, n_chains)
+    use_init = torch.arange(n_chains, device=key.device) == 0
+    lanes = lambda x: x.unsqueeze(0).repeat(  # noqa: E731
+        (n_chains,) + (1,) * x.dim())
+    spec_b = type(spec)(*(lanes(f) for f in spec))
+    ctx_b = tuple(lanes(x) for x in ctx)
+    return kernel(keys, spec_b, ctx_b, spec_b.theta0, use_init)

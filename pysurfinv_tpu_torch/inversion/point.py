@@ -5,8 +5,9 @@ observation container (point.py:8-14) with its host misfit and the
 host-sequential Metropolis oracle ``MCinv`` (point.py:15-89), its
 likelihood as a lane-batched function of predicted phase velocities, the
 reference npz chain writer, ``MCinvMP`` — all of one point's chain
-segments as lanes of the batched sampler, routed through
-:func:`..parallel.grid.invert_grid` — and ``PostPoint``, the posterior
+segments as lanes of the batched sampler (or of the per-chain legacy
+sampler), routed through :func:`..parallel.grid.invert_grid` with its
+checkpoints and lane ranges — and ``PostPoint``, the posterior
 statistics and plots over the npz chain format (point.py:134-332).
 Every entry point that solves takes ``device=`` (default ``"cuda"``).
 """
@@ -140,34 +141,39 @@ class Point:
     def MCinvMP(self, outdir="MCtest", pid=None, runN=50000, chainL=1000,
                 nprocess=None, seed=42, priori=False, verbose=True,
                 wave="rayleigh", segment=100, device="cuda",
-                sampler="batched"):
-        """All ``runN // chainL`` chain segments as lanes of the batched
-        sampler on one card (point.py:90-125), written as
-        ``{outdir}/{pid}.npz`` in the reference chain format.
+                sampler="batched", checkpoint=None, resume=False):
+        """All ``runN // chainL`` chain segments as lanes of one sampler
+        (point.py:90-125), written as ``{outdir}/{pid}.npz`` in the
+        reference chain format.
 
         Delegates to :func:`pysurfinv_tpu_torch.parallel.grid.invert_grid`
-        with this single point, so the lanes' keys — and the tracks —
-        equal those of ``invert_grid`` with the same seed.  ``nprocess``
-        is accepted for API compatibility and ignored: the unit of
-        parallelism is a lane, not a process.  ``sampler="legacy"`` (the
-        JAX package's per-chain kernel) is not ported (ROADMAP.md).
+        with this single point.  ``sampler="batched"`` (the default) runs
+        the batched sampler, whose lanes' keys — and tracks — equal those
+        of ``invert_grid`` with the same seed; ``"legacy"`` the JAX
+        package's per-chain kernel with its keys ``split(PRNGKey(seed),
+        n_chains)``, each chain's forward the single-model float64 solve.
+        ``device`` may be a list of devices (the chains split into lane
+        ranges, one process each); ``checkpoint`` / ``resume`` as in
+        ``invert_grid`` (batched sampler).  ``nprocess`` is accepted for
+        API compatibility and ignored: the unit of parallelism is a lane,
+        not a process.
         """
+        from pysurfinv_tpu_torch.inversion import random as R
         from pysurfinv_tpu_torch.parallel.grid import invert_grid
 
-        if sampler != "batched":
-            raise NotImplementedError(
-                f"MCinvMP(sampler={sampler!r}) is not ported (ROADMAP.md "
-                "Queue 1 item 11); the batched sampler is the default")
         if priori and outdir.split("_")[-1] != "priori":
             outdir = "_".join((outdir, "priori"))
         pid = self.pid if pid is None else pid
         if verbose:
             print(f"Running MC inversion: {pid}")
         t0 = time.time()
+        legacy = dict(_point_keys=R.PRNGKey(seed)[None],
+                      _check_all_periods=True) if sampler == "legacy" else {}
         invert_grid([self], [(0.0, 0.0)], outdir=outdir, runN=runN,
                     chainL=chainL, seed=seed, priori=priori, wave=wave,
                     segment=segment, verbose=False, pids=[pid],
-                    device=device)
+                    device=device, sampler=sampler, checkpoint=checkpoint,
+                    resume=resume, **legacy)
         if verbose:
             print(f"Time cost:{time.time() - t0:.2f} ")
 
@@ -264,11 +270,13 @@ class PointCascadia(Point):
         return _finish(ok, chi, N)
 
 
-def _interp_lanes(x, xp, fp):
+def _interp_lanes(x, xp, fp, edges=False):
     """``jnp.interp(x, xp[n], fp[n], left=nan, right=nan)`` for each row n
     of (N, M) ``xp``/``fp`` at the (Z,) points ``x``: (N, Z).  Same index
     rule (searchsorted right) and zero-width guard as JAX's, so nodes
-    repeated at layer interfaces resolve alike."""
+    repeated at layer interfaces resolve alike.  ``edges=True`` gives
+    ``jnp.interp``'s defaults instead: the first / last value outside
+    the row's range."""
     N, M = xp.shape
     xs = x.expand(N, -1).contiguous()
     i = torch.searchsorted(xp.contiguous(), xs, right=True).clamp(1, M - 1)
@@ -278,6 +286,9 @@ def _interp_lanes(x, xp, fp):
     dx0 = dx.abs() <= np.spacing(np.finfo(np.float64).eps)
     f = torch.where(dx0, f0,
                     f0 + ((xs - x0) / torch.where(dx0, 1.0, dx)) * (f1 - f0))
+    if edges:
+        f = torch.where(xs < xp[:, :1], fp[:, :1], f)
+        return torch.where(xs > xp[:, -1:], fp[:, -1:], f)
     out = (xs < xp[:, :1]) | (xs > xp[:, -1:])
     return torch.where(out, torch.full_like(f, np.nan), f)
 

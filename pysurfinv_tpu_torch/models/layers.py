@@ -108,31 +108,60 @@ class SeisLayer:
         return deepcopy(self)
 
 
+def _lane_rows(v, ref):
+    """A profile-valued parm in lane mode as (N, n) rows of ``ref``'s
+    dtype and device: an (n,) profile shared by every lane, or an (N, n)
+    lane tensor."""
+    t = (v.to(ref) if torch.is_tensor(v)
+         else torch.as_tensor(np.asarray(v, dtype=float), dtype=ref.dtype,
+                              device=ref.device))
+    return t.expand(ref.shape[0], -1) if t.dim() == 1 else t
+
+
 class PureLayer(SeisLayer):
+    """Layer-profile layer: ``parm`` holds h, vs, vp, rho, qs, qp.  In
+    lane mode (``lanes=`` an (N,) reference tensor) each comes back as
+    (N, n) rows; see :func:`_lane_rows`."""
+
     def __init__(self, parm=None, prop=None):
         super().__init__(parm, prop)
         self.prop.update({"LayerName": "PureLayer"})
 
     def seisPropLayers(self, **kwargs):
-        p = self.parm
-        return tuple(_vec(p[k]) for k in ("h", "vs", "vp", "rho", "qs", "qp"))
+        p, ref = self.parm, kwargs.get("lanes")
+        keys = ("h", "vs", "vp", "rho", "qs", "qp")
+        if ref is not None:
+            return tuple(_lane_rows(p[k], ref) for k in keys)
+        return tuple(_vec(p[k]) for k in keys)
 
     def H(self, **kwargs):
+        ref = kwargs.get("lanes")
+        if ref is not None:
+            return _lane_rows(self.parm["h"], ref).sum(dim=-1)
         return _vec(self.parm["h"]).sum()
 
 
 class PureGrid(SeisLayer):
+    """Grid-profile layer: ``parm`` holds z, vs, vp, rho, qs, qp at the
+    grid nodes.  In lane mode (``lanes=`` an (N,) reference tensor) each
+    comes back as (N, n) rows; see :func:`_lane_rows`."""
+
     def __init__(self, parm=None, prop=None):
         super().__init__(parm, prop)
         self.prop.update({"LayerName": "PureGrid"})
 
     def seisPropGrids(self, **kwargs):
-        p = self.parm
-        return tuple(_vec(p[k]) for k in ("z", "vs", "vp", "rho", "qs", "qp"))
+        p, ref = self.parm, kwargs.get("lanes")
+        keys = ("z", "vs", "vp", "rho", "qs", "qp")
+        if ref is not None:
+            return tuple(_lane_rows(p[k], ref) for k in keys)
+        return tuple(_vec(p[k]) for k in keys)
 
     def H(self, **kwargs):
-        z = _vec(self.parm["z"])
-        return z[-1] - z[0]
+        ref = kwargs.get("lanes")
+        z = (_vec(self.parm["z"]) if ref is None
+             else _lane_rows(self.parm["z"], ref))
+        return z[..., -1] - z[..., 0]
 
 
 class SeisLayerVs(SeisLayer):

@@ -216,6 +216,36 @@ class Model1D:
         return deepcopy(self)
 
 
+class PureGird(Model1D):
+    """Grid-profile model re-wrapped from smoothed 3-D products
+    (models.py:163-184; name kept for reference compatibility):
+    ``inProfiles`` is (z, vs, vp, rho, qs, qp, groups) on one node grid,
+    split into one ``PureGrid`` layer per group, each group's z starting
+    at 0."""
+
+    def __init__(self, inProfiles, info=None):
+        from pysurfinv_tpu_torch.models.layers import PureGrid
+        parm = {}
+        (parm["z"], parm["vs"], parm["vp"], parm["rho"], parm["qs"],
+         parm["qp"], grps) = inProfiles
+        self._layers = []
+        for grp in list(dict.fromkeys(grps)):
+            I = np.array(grps) == grp
+            parmLayer = {}
+            for k, v in parm.items():
+                parmLayer[k] = np.asarray(v)[I]
+                if k == "z":
+                    parmLayer[k] = parmLayer[k] - parmLayer[k][0]
+            self._layers.append(PureGrid(parmLayer, prop={"Group": grp}))
+        self.info = info
+
+    def loadYML(self, *a, **k):
+        raise AttributeError('"PureGird" object has no method "loadYML"')
+
+
+PureGrid1D = PureGird  # non-typo alias
+
+
 class MCinv(Model1D):
     """MC-invertible model: perturb/reset + prior hooks (models.py:190)."""
 

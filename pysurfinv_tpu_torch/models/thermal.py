@@ -3,11 +3,15 @@
 Capability spec from the reference pySurfInv's ``ThermSeis.py``: 1-D
 oceanic mantle temperature/pressure/density profiles (half-space
 cooling with an adiabat onset) and the temperature -> seismic
-conversions the Cascadia ocean stack uses (``models/layers.py``
-``OceanMantleHybrid``):
+conversions (the first two are the ones the Cascadia ocean stack uses,
+``models/layers.py`` ``OceanMantleHybrid``):
 
   * OceanSeisRitz  — Voigt-Reuss-Hill over 5 minerals (Ritzwoller 2004)
   * OceanSeisRuan  — Yamauchi & Takei 2016 anelasticity, Ruan 2018 solidus
+  * OceanSeisYaTa  — Yamauchi & Takei 2016 (selectable solidus), and its
+    unrelaxed-modulus and archival Ruan 2018 variants
+  * OceanSeisJack  — Jackson & Faul 2010 (fixed-node log-Gauss quadrature)
+  * OceanSeisPM13, OceanSeisBass, OceanSeisStix, behn2009_shear
 
 Every function takes and returns tensors; the dtype and device are the
 inputs'.  The adiabat-onset bisection runs the reference's fixed 16
@@ -259,6 +263,125 @@ def ruan_vs_qs(T, P, rho, period=50.0):
 
 
 # --------------------------------------------------------------------------
+# Jackson & Faul 2010 (ThermSeis.py:190-281) — fixed-node log quadrature
+# --------------------------------------------------------------------------
+
+_GL_NODES, _GL_WEIGHTS = np.polynomial.legendre.leggauss(64)
+
+
+def _log_quad(f, lo, hi):
+    """integral of f on [lo, hi] via 64-node Gauss-Legendre in log space."""
+    nodes = torch.as_tensor(_GL_NODES, dtype=lo.dtype, device=lo.device)
+    weights = torch.as_tensor(_GL_WEIGHTS, dtype=lo.dtype, device=lo.device)
+    s_lo, s_hi = torch.log(lo), torch.log(hi)
+    mid = 0.5 * (s_hi + s_lo)
+    half = 0.5 * (s_hi - s_lo)
+    s = mid[..., None] + half[..., None] * nodes
+    tau = torch.exp(s)
+    return torch.sum(f(tau) * tau * weights, dim=-1) * half
+
+
+def jackson_faul(T, P, gs=1e-3, period=1.0):
+    """(J1, J2, fM) creep compliances (ThermSeis.py:211-281).
+
+    The reference integrates the relaxation spectra with an adaptive
+    ``logQuad``; here a fixed 64-node log-Gauss rule, as in the JAX
+    package.  The lower bound of the peak integral (0 in the reference)
+    becomes tauP * exp(-10 * sig), far outside the Gaussian peak.
+    """
+    T = _t(T)
+    P = _t(P, like=T)
+    omega = 2 * math.pi / period
+    Tr, Pr, gsr = 1173.0, 0.2e9, 1.34e-5
+    tauLo, tauHo, tauMo = 1e-3, 1e7, 3.02e7
+    deltaB, alpha = 1.04, 0.274
+    ma, mv = 1.31, 3.0
+    EB, AV, R = 3.6e5, 1e-5, 8.314
+    tauPo, deltaP, sig = 3.98e-4, 0.057, 4.0
+    cp = deltaP * (2 * math.pi) ** (-0.5) / sig
+
+    gr = gs / gsr
+    taut = torch.exp(EB / R * (1 / T - 1 / Tr)) * torch.exp(
+        AV / R * (P / T - Pr / Tr))
+    tauH = tauHo * gr**ma * taut
+    tauL = tauLo * gr**ma * taut
+    tauP = tauPo * gr**ma * taut
+    tauM = tauMo * gr**mv * taut
+
+    ij1 = _log_quad(lambda t: t ** (alpha - 1) / (1 + (omega * t) ** 2),
+                    tauL, tauH)
+    ij2 = _log_quad(lambda t: t**alpha / (1 + (omega * t) ** 2), tauL, tauH)
+
+    def peak(t):
+        g = torch.exp(-0.5 * (torch.log(t / tauP[..., None]) / sig) ** 2)
+        return g / (1 + (omega * t) ** 2)
+
+    lo_p = tauP * math.exp(-10.0 * sig)
+    ip1 = _log_quad(lambda t: peak(t) / t, lo_p, tauH)
+    ip2 = _log_quad(peak, lo_p, tauH)
+
+    Jb1 = alpha * deltaB * ij1 / (tauH**alpha - tauL**alpha)
+    Jb2 = omega * alpha * deltaB * ij2 / (tauH**alpha - tauL**alpha)
+    J1 = 1.0 + Jb1 + cp * ip1
+    J2 = Jb2 + cp * omega * ip2 + 1.0 / (omega * tauM)
+    return J1, J2, 1.0 / tauM
+
+
+# --------------------------------------------------------------------------
+# Simpler published conversions
+# --------------------------------------------------------------------------
+
+def bass_vs(T, P, rho):
+    """OceanSeisBass (ThermSeis.py:175-181)."""
+    Ju = 1.0 / (66.5 - 0.0136 * (T - C2K - 900) + 1.8 * (P / 1e9 - 0.2)) * 1e-9
+    return 1.0 / torch.sqrt(rho * Ju) / 1000.0
+
+
+def stix_vs(T, zdeps_km):
+    """OceanSeisStix (ThermSeis.py:183-188)."""
+    return 4.77 + 0.038 * zdeps_km / 29.80 - 0.000378 * (T - 300.0)
+
+
+_PM13_COEFFS = (3.9461e-9, -3.4761e-7, 9.9473e-6, -5.7175e-5, -2.3616e-3,
+                0.054332, 0.55097)
+
+
+def pm13_vs(T, P, rho, period=1.0):
+    """OceanSeisPM13 (ThermSeis.py:283-314)."""
+    Ju = 1.0 / (72.66 - 0.00871 * T + 2.04 * P / 1e9) * 1e-9
+    E, Va, R = 402.9e3, 7.81e-6, 8.314
+    Pr, Tr = 1.5e9, 1473.0
+    eta0 = 10.0**22.38
+    a_star = torch.exp((E + Pr * Va) / (R * Tr) - (E + P * Va) / (R * T))
+    tauM = Ju * eta0 / a_star
+    f_prime = tauM / period
+    x = torch.log(f_prime)
+    F = torch.zeros_like(x)
+    for c in _PM13_COEFFS:  # Horner, as jnp.polyval
+        F = F * x + c
+    F = torch.where(f_prime > 1e13, 1.0, F)
+    return 1.0 / torch.sqrt(rho * Ju / F) / 1000.0
+
+
+def behn2009_shear(freq, d, T, P, coh=100.0):
+    """Behn+ 2009 (ThermSeis.py:451-482): (Qinv, shear factor)."""
+    T = _t(T) + 273.1
+    pqref, pq = 1.09, 1.0
+    dqref = 1.24e-5
+    Eqref, Vqref = 505e3, 1.2e-5
+    Bo, Eq, Vq = 1.28e8, 420e3, 1.2e-5
+    cohref, R, Pqref, rq, alpha = 50.0, 8.314, 300e6, 1.2, 0.27
+    Tqref = 1265.0
+    B = (Bo * dqref ** (pq - pqref) * (coh / cohref) ** rq
+         * math.exp(((Eq + Pqref * Vq) - (Eqref + Pqref * Vqref))
+                    / R / Tqref))
+    Qinv = (B * d ** (-pq) / freq
+            * torch.exp(-(Eq + P * 1e9 * Vq) / R / T)) ** alpha
+    F = (1.0 / math.tan(math.pi * alpha / 2)) / 2
+    return Qinv, (1 - F * Qinv) ** 2
+
+
+# --------------------------------------------------------------------------
 # Reference-compatible class wrappers
 # --------------------------------------------------------------------------
 
@@ -295,3 +418,102 @@ class OceanSeisRuan(SeisModel):
         self.zdeps = therMod.zdeps
         self.vs, self.qs, self.vs_unrelaxed = ruan_vs_qs(
             therMod.T, therMod.P, therMod.rho, period=self.period)
+
+
+class OceanSeisYaTa(SeisModel):
+    def __init__(self, therMod=None, Tm="Takei2017", period=50):
+        self.Tm, self.period = Tm, period
+        super().__init__(therMod)
+
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        self.vs, self.qs, self.vs_unrelaxed = yata_vs_qs(
+            therMod.T, therMod.P, therMod.rho, period=self.period,
+            Tm=self.Tm)
+
+
+class OceanSeisJack(SeisModel):
+    def __init__(self, therMod=None, gs=1e-3, period=1):
+        self.gs, self.period = gs, period
+        super().__init__(therMod)
+
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        J1, J2, _ = jackson_faul(therMod.T, therMod.P, self.gs, self.period)
+        Ju = 1.0 / (66.5 - 0.0136 * (therMod.T - C2K - 900)
+                    + 1.8 * (therMod.P / 1e9 - 0.2)) * 1e-9
+        self.vs = 1.0 / torch.sqrt(therMod.rho * Ju * J1) / 1000.0
+        self.qs = J1 / J2
+        self.vs_no_anelastic = 1.0 / torch.sqrt(therMod.rho * Ju) / 1000.0
+
+
+class OceanSeisPM13(SeisModel):
+    def __init__(self, therMod=None, period=1):
+        self.period = period
+        super().__init__(therMod)
+
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        self.vs = pm13_vs(therMod.T, therMod.P, therMod.rho, self.period)
+
+
+class OceanSeisBass(SeisModel):
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        self.vs = bass_vs(therMod.T, therMod.P, therMod.rho)
+
+
+class OceanSeisStix(SeisModel):
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        self.vs = stix_vs(therMod.T, therMod.zdeps)
+
+
+class OceanSeisYaTa_unrelaxed(SeisModel):
+    """Unrelaxed-modulus Vs only, no anelastic relaxation
+    (ThermSeis.py:424-431)."""
+
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        Ju = 1.0 / (72.45 - 0.01094 * (therMod.T - C2K)
+                    + 1.987 * therMod.P / 1e9) * 1e-9
+        self.vs = 1.0 / torch.sqrt(therMod.rho * Ju) / 1000.0
+
+
+class OceanSeisRuan_old(SeisModel):
+    """Archival Ruan 2018 variant kept by the reference
+    (ThermSeis.py:488-592): damp-switchable solidus (True = damp
+    Ruan2018, False = Hirschmann2009, numeric = fixed Tm), J1-only
+    velocity reduction, mu_P 1.75 (or YaTa's 1.987 with YaTaJu).
+
+    Deliberate deviation, as in the JAX package: the reference's
+    deprecated class stores vs in m/s (it never divides by 1000, unlike
+    every other converter); here ``vs`` is km/s, so this class is
+    interchangeable with the rest of the converter family."""
+
+    def __init__(self, therMod=None, damp=True, YaTaJu=False, period=50):
+        self.damp, self.YaTaJu, self.period = damp, YaTaJu, period
+        super().__init__(therMod)
+
+    def fromThermal(self, therMod):
+        self._therMod = therMod
+        self.zdeps = therMod.zdeps
+        T, P, rho = therMod.T, therMod.P, therMod.rho
+        mu_P = 1.987 if self.YaTaJu else 1.75
+        Ju = 1.0 / (72.45 - 0.01094 * (T - C2K) + mu_P * P / 1e9) * 1e-9
+        Tm = ("Ruan2018" if self.damp is True else
+              "Hirschmann2009" if self.damp is False else self.damp)
+        J1, J2 = yata_anelasticity(T, P, self.period, Tm=Tm)
+        self.vs = 1.0 / torch.sqrt(rho * Ju * J1) / 1000.0
+        self.vs_no_anelastic = 1.0 / torch.sqrt(rho * Ju) / 1000.0
+        J2 = torch.clamp(J2, min=1e-30)
+        self.qs = J1 / J2
+
+
+behn2009Shear = behn2009_shear  # exact reference name (ThermSeis.py:451)

@@ -5,6 +5,11 @@
   (bench.py:36-50) and the Cascadia setting with Brownian parameters
   of the repository's verification notes; plus the padding for the
   solver and the model batch carried across from numpy.
+* ``PureGird`` / ``PureGrid1D`` (a model re-wrapped from node profiles,
+  as ``Model3D.smoothGrid`` builds them) against the JAX package's, and
+  the lane mode of ``PureLayer`` / ``PureGrid`` against the JAX layers
+  under ``jax.vmap``, float64, rtol 1e-12 (the port copies the profiles;
+  nothing is computed but differences and midpoints).
 * ``import pysurfinv_tpu_torch`` loads no JAX module.
 """
 
@@ -85,13 +90,23 @@ def test_model_batch_from_numpy():
 
 PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
                 "pysurfinv_tpu_torch.compat",
+                "pysurfinv_tpu_torch.utils",
+                "pysurfinv_tpu_torch.profiling",
                 "pysurfinv_tpu_torch.models.model1d",
+                "pysurfinv_tpu_torch.models.layers",
+                "pysurfinv_tpu_torch.models.thermal",
                 "pysurfinv_tpu_torch.inversion.random",
                 "pysurfinv_tpu_torch.inversion.priors",
                 "pysurfinv_tpu_torch.inversion.compiled",
                 "pysurfinv_tpu_torch.inversion.mcmc",
                 "pysurfinv_tpu_torch.inversion.point",
+                "pysurfinv_tpu_torch.inversion.parity",
                 "pysurfinv_tpu_torch.parallel.grid",
+                "pysurfinv_tpu_torch.parallel.mesh",
+                "pysurfinv_tpu_torch.geo.grid",
+                "pysurfinv_tpu_torch.geo.model3d",
+                "pysurfinv_tpu_torch.geo.exchange",
+                "pysurfinv_tpu_torch.geo.decorations",
                 "pysurfinv_tpu_torch.ops.kernels",
                 "pysurfinv_tpu_torch.ops.eigen",
                 "pysurfinv_tpu_torch.senskernel",
@@ -104,6 +119,8 @@ def test_port_imports_no_jax():
     import neither JAX nor the JAX package."""
     code = ("import sys, runpy, " + ", ".join(PORT_MODULES) + "; "
             "from pysurfinv_tpu_torch import PostPoint, fast_surf; "
+            "from pysurfinv_tpu_torch import Model3D, PureGird, "
+            "points_devices; "
             "from pysurfinv_tpu_torch import SensKernel, sensitivity_kernels, "
             "eigenfunctions_regular; "
             "from pysurfinv_tpu_torch.inversion.point import "
@@ -116,3 +133,105 @@ def test_port_imports_no_jax():
                          text=True, timeout=120,
                          cwd=os.path.dirname(os.path.dirname(__file__)))
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _node_profiles(seed=0):
+    """(z, vs, vp, rho, qs, qp, groups) node profiles of the Cascadia
+    setting with a seeded Vs jitter — the shape of what
+    ``Model3D.smoothGrid`` hands ``PureGird``."""
+    z, vs, vp, rho, qs, qp, grp = tm.buildModel1D(VERIFY, dict(LOCAL)) \
+        .seisPropGrids()
+    rng = np.random.default_rng(seed)
+    vs = vs * (1.0 + 0.01 * rng.standard_normal(vs.shape))
+    return [z, vs, vp, rho, qs, qp, list(grp)]
+
+
+def test_pure_gird_matches_jax():
+    prof = _node_profiles()
+    info = {"topo": -2.0, "refLayer": False}
+    assert tm.PureGrid1D is tm.PureGird
+    got = tm.PureGird(prof, info=dict(info))
+    ref = jm.PureGird(prof, info=dict(info))
+    assert [l.prop["Group"] for l in got.layers] == \
+        [l.prop["Group"] for l in ref.layers] == list(dict.fromkeys(prof[6]))
+    for refLayer in (False, True):
+        a, b = got.seisPropGrids(refLayer=refLayer), \
+            ref.seisPropGrids(refLayer=refLayer)
+        assert a[-1] == b[-1]
+        for x, y in zip(a[:-1], b[:-1]):
+            np.testing.assert_allclose(x, y, rtol=1e-12, atol=0)
+        a, b = got.seisPropLayers(refLayer=refLayer), \
+            ref.seisPropLayers(refLayer=refLayer)
+        assert list(a[-1]) == list(b[-1])
+        for x, y in zip(a[:-1], b[:-1]):
+            np.testing.assert_allclose(x, y, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(got.value([3.0, 50.0, 150.0]),
+                               ref.value([3.0, 50.0, 150.0]), rtol=1e-12)
+    assert got.moho() == ref.moho()
+    with pytest.raises(AttributeError):
+        got.loadYML({})
+
+
+def test_pure_layers_lane_mode_match_jax_vmap():
+    """Lane mode: profiles given as (N, n) lane tensors or shared (n,)
+    constants come back as (N, n) rows, equal to the JAX layers traced
+    under ``jax.vmap``."""
+    import jax
+    import jax.numpy as jnp
+
+    from pysurfinv_tpu.models import layers as jl
+    from pysurfinv_tpu_torch.models import layers as tl
+
+    rng = np.random.default_rng(2)
+    N, n = 5, 7
+    z = np.cumsum(rng.uniform(0.5, 2.0, n))
+    vs = 3.0 + rng.random((N, n))   # per lane
+    shared = {k: 1.0 + rng.random(n) for k in ("vp", "rho", "qs", "qp")}
+    ref = torch.zeros(N, dtype=torch.float64)
+
+    def grid_parm(vs_row):
+        return dict(z=z, vs=vs_row, **shared)
+
+    g_t = tl.PureGrid(grid_parm(torch.tensor(vs))).seisPropGrids(lanes=ref)
+    g_j = jax.vmap(lambda v: jl.PureGrid(grid_parm(v)).seisPropGrids())(
+        jnp.asarray(vs))
+    H_t = tl.PureGrid(dict(grid_parm(vs[0]), z=torch.tensor(
+        z[None] * (1 + np.arange(N))[:, None]))).H(lanes=ref)
+    H_j = jax.vmap(lambda s: jl.PureGrid(dict(grid_parm(vs[0]),
+                                              z=z * s)).H())(
+        jnp.arange(1.0, N + 1))
+    h = np.diff(z)
+    lay_t = tl.PureLayer(dict(h=torch.tensor(h[None] * (1 + np.arange(N))[
+        :, None]), vs=vs[0, 1:], **{k: v[1:] for k, v in shared.items()}))
+    lay_j = lambda s: jl.PureLayer(dict(  # noqa: E731
+        h=h * s, vs=vs[0, 1:], **{k: v[1:] for k, v in shared.items()}))
+    L_t = lay_t.seisPropLayers(lanes=ref)
+    L_j = jax.vmap(lambda s: lay_j(s).seisPropLayers())(jnp.arange(1.0,
+                                                                   N + 1))
+    HL_t = lay_t.H(lanes=ref)
+    HL_j = jax.vmap(lambda s: lay_j(s).H())(jnp.arange(1.0, N + 1))
+    for a, b in [*zip(g_t, g_j), (H_t, H_j), *zip(L_t, L_j), (HL_t, HL_j)]:
+        assert a.shape == b.shape and a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
+                                   atol=0)
+    # host mode is unchanged: (n,) profiles
+    assert tl.PureGrid(grid_parm(vs[0])).seisPropGrids()[1].shape == (n,)
+
+
+def test_profiling_helpers(tmp_path):
+    """``profiling.throughput`` (best of synchronised windows) and
+    ``trace`` / ``annotate`` (a torch.profiler trace written as Chrome
+    JSON) on a CPU computation."""
+    from pysurfinv_tpu_torch import profiling
+
+    x = torch.ones(64, 64, dtype=torch.float64)
+    res = profiling.throughput(lambda: x @ x, n_units=64, unit="rows",
+                               iters=2, windows=3)
+    assert len(res.windows_s) == 3 and res.best_s == min(res.windows_s)
+    assert res.value == pytest.approx(64 / res.best_s)
+    assert "rows/s" in str(res)
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        with profiling.annotate("matmul"):
+            (x @ x).sum()
+    assert (tmp_path / "tr" / "trace.json").exists()
+    assert any(e.key == "matmul" for e in prof.key_averages())

@@ -173,8 +173,3 @@ def test_post_point_plots(chains):
     post._check_convergency(zdeps=[20.0])
     assert len(plt.get_fignums()) == n + 2 + 1 + 2
     plt.close("all")
-
-
-def test_legacy_sampler_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _points(tpoint).MCinvMP(sampler="legacy", **CPU)

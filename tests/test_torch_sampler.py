@@ -291,11 +291,3 @@ def test_segments_and_tiles_do_not_change_tracks(tmp_path, monkeypatch):
     for ll in LLS:
         np.testing.assert_array_equal(_track(tmp_path / "u_priori", ll),
                                       _track(tmp_path / "t_priori", ll))
-
-
-def test_unported_options_raise(tmp_path):
-    pts = _points(PointCascadia, 1)
-    for kw in (dict(sampler="legacy"), dict(checkpoint="ck.npz")):
-        with pytest.raises(NotImplementedError):
-            invert_grid(pts, LLS[:1], outdir=str(tmp_path), runN=4,
-                        chainL=2, device="cpu", **kw)
