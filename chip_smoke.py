@@ -23,14 +23,19 @@ Drives the port's two main paths through the entry points a user calls:
   * the batched MCMC sampler ``invert_grid`` at the JAX package's
     flagship workload (bench.py:249-260): 64 PointCascadia points of the
     reference's example setting (examples/invert_point.py:21-51),
-    sedthk and lithoAge from default_rng(0), runN 6000 with chainL 200
-    (1,920 lanes), 18 periods, segment 100, seed 1 — with the default
+    sedthk and lithoAge from default_rng(0), 30 chains a point (1,920
+    lanes), 18 periods, seed 1, the depth cut to chainL 100 (runN 3000,
+    segment 50; the workload's chainL is 200) — with the default
     solver (newton_sep 3), checkpointed and resumed, split into two lane
     ranges, and with ``PYSURFINV_MCMC_NNEWTON=2``; the streamed npz
     writer and the posterior comparator on its files;
   * the per-chain legacy sampler, and the 3-D host analysis ``Model3D``
     (maps, profiles, sections, smoothing, phase-velocity QC) on the
-    flagship run's 64 files.
+    flagship run's 64 files;
+  * the experimental samplers ``adaptive_point``, ``tuned_rwm_point``
+    and ``mala_point`` (with its likelihood gradient) on the example
+    point, and the single-model solve on the tree-product secular
+    functions.
 
 Phases, each of which raises on failure:
 
@@ -96,14 +101,14 @@ Phases, each of which raises on failure:
               SensKernel "ad" and "eigen" (68 layers, T 10-60 s, endmode 1)
               and SensKernelPert (the first 12 layers) on a dict model,
               finite where solved; the seconds of each call;
-  5. sampler  on 2 points x 4 chains x 10 steps the sampler with the
+  5. sampler  on 2 points x 4 chains x 6 steps the sampler with the
               kernels gives the tracks of the sampler with the plain
               versions; then the flagship workload four times, each run
               with every launch count set to 0 just before it: the first
               call checkpointed and killed after its first segment, then
               resumed from the checkpoint (the seconds of each half and
               the checkpoint's size printed); the timed call with the
-              default solver (mcmc_effective_solves_per_sec = 64 * 6000 /
+              default solver (mcmc_effective_solves_per_sec = 64 * 3000 /
               seconds), whose tracks the resumed run must equal bit for
               bit and whose files are written by the streamed writer; the
               lanes split into two ranges on ``["cuda:0", "cuda:0"]``,
@@ -127,6 +132,27 @@ Phases, each of which raises on failure:
               against the same calls with CPU tensors (1e-12 of each
               field's max), checkPhaseVelocity(pers=[10, 50]), write /
               load; the seconds of each step;
+  5c. exp.    the experimental samplers on the reference's example point:
+              at 2 lanes x 6 rows (the solver's separated Newton cut to
+              1 iteration), adaptive_point, tuned_rwm_point and
+              mala_point each give the same tracks with the kernels as
+              with the plain versions, bit for bit; then each at the
+              default lane count of its entry point, depth cut (AM: 6
+              lanes, warmups 64/128/64, chainL 200; tuned RWM: 48 warm
+              lanes, std_steps 128, rm_steps 32, 6 recorded lanes x 200;
+              MALA: 30 lanes x 50, tau 0.8), every launch count set to 0
+              just before and read just after (secular_lanes, frozen and
+              gradient must move): row 0 of every chain accepted, every
+              value finite, acceptance in (0, 1] (above 0.05 for MALA),
+              the AM Cholesky factor lower-triangular with a positive
+              diagonal, PostPoint reads the file; seconds, steps/s and
+              MALA's solve and gradient shares of a step (synchronised
+              host clock); the MALA gradient on the card against the CPU
+              (4 lanes, float64, 1e-9 of each lane's max); the
+              single-model float64 solve on the tree-product secular
+              functions (SurfConfig(backend="xla_assoc")) on bench model 0,
+              Rayleigh and Love, within 5e-5 km/s of the sequential
+              solve, seconds per curve of both;
   6. time     solves/s per run and the joint solve's R+L curve pairs/s
               beside the independent Rayleigh + Love solves, each
               kernel's time beside its plain
@@ -141,10 +167,11 @@ Phases, each of which raises on failure:
 
 Prints the card line and a JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``.  Run from the repository
-root: ``python3 chip_smoke.py``; it takes about twelve minutes on an
+root: ``python3 chip_smoke.py``; it takes about fourteen minutes on an
 H100, most of them in the sampler's host-bound runs, Model3D's 128
-single-model float64 solves, the plain versions' timings and the
-analysis phase's eager float64 calls (~1 minute).
+single-model float64 solves, the plain versions' timings and sampler
+runs (phases 3, 5 and 5c), and the analysis phase's eager float64 calls
+(~1 minute).
 """
 
 import json
@@ -205,7 +232,8 @@ MC_UNCERS = [0.006550350458769691, 0.005, 0.005, 0.005, 0.005, 0.005, 0.005,
              0.005, 0.005, 0.005, 0.005, 0.005499996722895128,
              0.00751713560920708, 0.007910350806141024, 0.007711019920661203,
              0.010152973423528881, 0.01062776863809981, 0.015829560954127662]
-MC_POINTS, MC_RUN_N, MC_CHAIN_L, MC_SEGMENT, MC_SEED = 64, 6000, 200, 100, 1
+# chain depth cut to 100 (bench.py's 200) to keep the smoke's time
+MC_POINTS, MC_RUN_N, MC_CHAIN_L, MC_SEGMENT, MC_SEED = 64, 3000, 100, 50, 1
 B_SAMPLER = MC_POINTS * (MC_RUN_N // MC_CHAIN_L)  # the sampler's 1,920 lanes
 
 KERNEL_SOURCE = "pysurfinv_tpu_torch/csrc/secular_lanes.cu"
@@ -647,6 +675,9 @@ def main():
     mark("legacy")
     mc["model3d"] = model3d_phase(mc_dir, dev, card)
     mark("model3d")
+    # ---- 5c. the experimental samplers and the tree-product solve -----
+    launches_exp, exp = experimental_phase(sl, arrs, nl, periods, dev, card)
+    mark("experimental")
 
     # ---- 6. time -----------------------------------------------------
     solves, solve_ms = {}, {}
@@ -828,13 +859,16 @@ def main():
         kernels.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCE, replaces=rep,
             launches=(launches_solve[name] + launches_joint[name]
-                      + launches_mc[name]),
+                      + launches_mc[name] + launches_exp[name]),
             max_abs_err=kerr[name]["max_abs_err"],
             ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
             library_ms=None,
             launches_solve_path=launches_solve[name],
             launches_sampler_path=launches_mc[name],
             launches_joint_path=launches_joint[name],
+            launches_experimental_path={
+                r: exp[r]["launches"][name]
+                for r in ("adaptive", "tuned_rwm", "mala")},
             launches_by_sampler_run={
                 r: mc[r]["launches"][name]
                 for r in ("default_first_call", "default", "lane_ranges",
@@ -850,8 +884,9 @@ def main():
     log(f"[time] summary ({card}): solves/s " + json.dumps(
         {k: round(v, 1) for k, v in solves.items()}) + "; single-model "
         + json.dumps(single) + "; analysis " + json.dumps(analysis)
-        + "; sampler " +
-        json.dumps(mc) + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
+        + "; sampler " + json.dumps(mc) + "; experimental "
+        + json.dumps(exp)
+        + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
         " (by phase: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
         + ")")
     log(card)
@@ -922,15 +957,16 @@ def sampler_phase(sl, card):
     lanes = MC_POINTS * (MC_RUN_N // MC_CHAIN_L)
 
     # kernels against plain versions, through the whole sampler: 2 points
-    # x 4 chains x 10 steps
+    # x 4 chains x 6 steps in 2 segments (a warm step of the plain
+    # versions takes ~10 s on the card)
     cfg0 = grid.mcmc_solver_cfg
     sub = {}
     for backend in ("auto", "plain"):  # auto: the kernels, on the card
         with mock.patch.object(grid, "mcmc_solver_cfg",
                                lambda b=backend: replace(cfg0(), backend=b)):
             paths = grid.invert_grid(pts[:2], lls[:2],
-                                     outdir=f"{out}/sub_{backend}", runN=40,
-                                     chainL=10, seed=MC_SEED, segment=5,
+                                     outdir=f"{out}/sub_{backend}", runN=24,
+                                     chainL=6, seed=MC_SEED, segment=3,
                                      verbose=False)
         sub[backend] = read_tracks(paths)
     a, b = sub["auto"], sub["plain"]
@@ -940,7 +976,7 @@ def sampler_phase(sl, card):
           f"sampler tracks with the kernels differ from the plain "
           f"versions' (thetas/accepts equal {same_theta}, max|dmisfit| "
           f"{dmis:.3e})")
-    log(f"[sampler] 2 points x 4 chains x 10 steps: kernels vs plain "
+    log(f"[sampler] 2 points x 4 chains x 6 steps: kernels vs plain "
         f"versions: thetas and accepts equal {same_theta}, max|dmisfit| "
         f"{dmis:.3e}, bitwise {bool(np.array_equal(a, b))} ({card})")
 
@@ -1233,6 +1269,259 @@ def legacy_check(dev, card):
         f"{float(a[:, 2].mean()):.3f} ({card})")
     return dict(card_s=round(secs["card"], 3), cpu_s=round(secs["cpu"], 3),
                 theta_abs_err=dth, misfit_rel_err=rel)
+
+
+# phase 5c: the experimental samplers at the default lane counts of their
+# entry points on the example point, depth cut (PERF.md section 4)
+EXP_AM = dict(runN=1200, chainL=200)          # 6 lanes (6000 / 1000)
+EXP_AM_WARMUP = dict(warmup1=64, warmup2=128, warmup3=64)
+EXP_TRWM = dict(runN=1200, chainL=200, std_steps=128, rm_steps=32)
+EXP_MALA = dict(runN=1500, chainL=50, tau=0.8)  # 30 lanes (6000 / 200)
+
+
+def experimental_phase(sl, arrs, nl, periods, dev, card):
+    """Phase 5c: ``adaptive_point``, ``tuned_rwm_point`` and ``mala_point``
+    on the card.  First, at 2 lanes x 6 rows with one separated-Newton
+    iteration a solve, each sampler's tracks with the kernels equal its
+    tracks with the plain versions bit for bit.  Then each at its default
+    lane count (6 AM lanes, 48 warm + 6 tuned lanes, 30 MALA lanes),
+    every launch count set to 0 just before and read just after: row 0
+    of every chain accepted, every value finite, acceptance in (0, 1]
+    (above 0.05 for MALA), the AM Cholesky factor valid, PostPoint reads
+    the file; seconds, steps a second, launches, and MALA's solve and
+    gradient shares of a step (synchronised host clock).  Then the MALA
+    gradient on the card against the CPU (4 lanes, float64) and the
+    single-model solve on the tree-product secular functions
+    (``SurfConfig(backend="xla_assoc")``) against the sequential one on
+    bench model 0, R and L.  Returns (launch counts summed over the three
+    runs, numbers)."""
+    import torch
+    from unittest import mock
+
+    from pysurfinv_tpu_torch.inversion import adaptive, mala
+    from pysurfinv_tpu_torch.inversion.compiled import CompiledModel
+    from pysurfinv_tpu_torch.inversion.point import PointCascadia, PostPoint
+    from pysurfinv_tpu_torch.ops.dispersion import SurfConfig, surf_forward
+    from pysurfinv_tpu_torch.parallel import grid
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_exp_")
+    entry = {"adaptive": adaptive.adaptive_point,
+             "tuned_rwm": adaptive.tuned_rwm_point,
+             "mala": mala.mala_point}
+
+    def point():
+        return PointCascadia(MC_SETTING, dict(MC_LOCAL), periods=PERIODS,
+                             vels=MC_VELS, uncers=MC_UNCERS)
+
+    def run(name, outdir, **kw):
+        """One sampler's entry point on the example point, on the card:
+        its track."""
+        path = entry[name](point(), outdir=outdir, pid=name, seed=MC_SEED,
+                           device=dev, **kw)
+        return path, np.load(path, allow_pickle=True)["mcTrack"]
+
+    def sync_time(fn):
+        """fn() and its seconds between two synchronisations."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # ---- kernels against plain versions through each sampler -----------
+    # one separated-Newton iteration a solve, not 3: a plain gradient
+    # launch takes ~3 s on the card; the same four kernels launch
+    small = {"adaptive": dict(runN=12, chainL=6, acfg=adaptive.AdaptConfig(
+                 warmup1=1, warmup2=1, warmup3=1)),
+             "tuned_rwm": dict(runN=12, chainL=6, std_steps=2, rm_steps=2,
+                               warm_lanes=6),
+             "mala": dict(runN=12, chainL=6, tau=0.8)}
+    for name in entry:
+        tr, secs = {}, {}
+        for backend in ("auto", "plain"):   # auto: the kernels, on the card
+            scfg = replace(grid.mcmc_solver_cfg(), backend=backend,
+                           newton_sep=1)
+            (_, tr[backend]), secs[backend] = sync_time(lambda: run(
+                name, f"{out}/sub_{backend}", scfg=scfg, **small[name]))
+        same = bool(np.array_equal(tr["auto"], tr["plain"]))
+        check(same and tr["auto"].shape == (12, 9),
+              f"{name}: tracks with the kernels differ from the plain "
+              f"versions' (max|d| "
+              f"{float(np.abs(tr['auto'] - tr['plain']).max()):.3e})")
+        log(f"[exp] {name} 2 lanes x 6 rows: kernels vs plain versions "
+            f"bitwise {same}; {secs['auto']:.2f} s vs "
+            f"{secs['plain']:.2f} s ({card})")
+
+    # ---- the main runs: default lane counts, depth cut -------------------
+    launches = {k.__name__: 0 for k in sl.KERNELS}
+    need = ("secular_lanes", "secular_lanes_frozen", "secular_lanes_grad")
+    frozen = {}
+    make_am = adaptive.make_adaptive_sampler
+
+    def am_spy(*a, **kw):
+        """make_adaptive_sampler whose warmup_fn keeps its frozen
+        proposal for the checks below."""
+        init_fn, warmup_fn, run_fn = make_am(*a, **kw)
+
+        def warm(*wa):
+            carry, chol, scale = warmup_fn(*wa)
+            frozen["chol"], frozen["scale"] = chol, scale
+            return carry, chol, scale
+        return init_fn, warm, run_fn
+
+    shares = {"solve": 0.0, "grad": 0.0}
+
+    def timed_factory(factory, key):
+        """A likelihood factory whose functions add their synchronised
+        seconds to shares[key]."""
+        def make(*a, **kw):
+            fn = factory(*a, **kw)
+
+            def timed(*b):
+                r, sec = sync_time(lambda: fn(*b))
+                shares[key] += sec
+                return r
+            return timed
+        return make
+
+    am_kw = dict(EXP_AM, acfg=adaptive.AdaptConfig(**EXP_AM_WARMUP))
+    main = {  # (entry point arguments, lanes, sequential steps)
+        "adaptive": (am_kw, EXP_AM["runN"] // EXP_AM["chainL"],
+                     sum(EXP_AM_WARMUP.values()) + EXP_AM["chainL"]),
+        "tuned_rwm": (EXP_TRWM, EXP_TRWM["runN"] // EXP_TRWM["chainL"],
+                      EXP_TRWM["std_steps"] + 2 * EXP_TRWM["rm_steps"]
+                      + EXP_TRWM["chainL"]),
+        "mala": (EXP_MALA, EXP_MALA["runN"] // EXP_MALA["chainL"],
+                 EXP_MALA["chainL"]),
+    }
+    patches = {
+        "adaptive": [mock.patch.object(adaptive, "make_adaptive_sampler",
+                                       am_spy)],
+        "tuned_rwm": [],
+        "mala": [mock.patch.object(grid, "chi_sqr_fn",
+                                   timed_factory(grid.chi_sqr_fn, "solve")),
+                 mock.patch.object(mala, "_grad_chi_lane",
+                                   timed_factory(mala._grad_chi_lane,
+                                                 "grad"))]}
+    res = {}
+    for name, (kw, n_chains, n_steps) in main.items():
+        for p in patches[name]:
+            p.start()
+        try:
+            sl.reset_launch_counts()
+            (path, tr), sec = sync_time(lambda: run(name, f"{out}/main",
+                                                    **kw))
+            got = {k.__name__: k.launches for k in sl.KERNELS}
+        finally:
+            for p in patches[name]:
+                p.stop()
+        for k, n in got.items():
+            launches[k] += n
+        for k in need:
+            check(got[k] > 0, f"{name}: {k} was not launched")
+        chain_l = kw["chainL"]
+        check(tr.shape == (n_chains * chain_l, 9),
+              f"{name}: track shape {tr.shape}")
+        check(bool(np.isfinite(tr).all()), f"{name}: non-finite values")
+        check(bool((tr[::chain_l, 2] == 1).all()),
+              f"{name}: a chain's row 0 is not accepted")
+        acc = float(tr[:, 2].mean())
+        check(0 < acc <= 1 and (name != "mala" or acc > 0.05),
+              f"{name}: acceptance {acc:.4f}")
+        pp = PostPoint(path, device=dev)
+        check(bool(np.isfinite(pp.misfits).all()) and pp.N == len(tr),
+              f"{name}: PostPoint read {pp.N} rows")
+        r = dict(lanes=n_chains, chainL=chain_l, sequential_steps=n_steps,
+                 seconds=round(sec, 2),
+                 steps_per_sec=round(n_steps / sec, 2),
+                 samples_per_sec=round(len(tr) / sec, 1),
+                 acceptance=round(acc, 4), launches=got,
+                 min_misfit=round(float(tr[:, 0].min()), 4))
+        extra = ""
+        if name == "adaptive":
+            chol = frozen["chol"].cpu().numpy()
+            scale = float(frozen["scale"])
+            off = float(np.abs(chol - np.diag(np.diag(chol))).sum())
+            check(bool(np.isfinite(chol).all()) and scale > 0
+                  and np.array_equal(chol, np.tril(chol))
+                  and bool((np.diag(chol) > 0).all()),
+                  f"adaptive: invalid Cholesky factor {chol} / scale "
+                  f"{scale}")
+            r.update(scale=round(scale, 4), chol_off_diagonal=off)
+            extra = (f", scale {scale:.4f}, Cholesky off-diagonal mass "
+                     f"{off:.4g}")
+        if name == "mala":
+            per = {k: v / n_steps for k, v in shares.items()}
+            r.update(solve_share=round(shares["solve"] / sec, 3),
+                     grad_share=round(shares["grad"] / sec, 3),
+                     solve_s_per_step=round(per["solve"], 4),
+                     grad_s_per_step=round(per["grad"], 4))
+            extra = (f", a step {sec / n_steps:.3f} s: solve "
+                     f"{per['solve']:.3f} s ({r['solve_share']:.3f}), "
+                     f"gradient {per['grad']:.3f} s ({r['grad_share']:.3f})")
+        res[name] = r
+        log(f"[exp] {name}: {n_chains} chains x {chain_l} rows "
+            f"({n_steps} sequential steps with the warmup): {sec:.2f} s, "
+            f"{n_steps / sec:.2f} steps/s, {len(tr) / sec:.1f} samples/s, "
+            f"acceptance {acc:.4f}, min misfit {float(tr[:, 0].min()):.4f}"
+            f"{extra}; launches {got} ({card})")
+
+    # ---- the MALA gradient: card against CPU, float64 ---------------------
+    pt = point()
+    cm = CompiledModel(pt.initMod)
+    rng = np.random.default_rng(1)
+    th = np.clip(cm.spec.theta0 + 0.5 * cm.spec.step
+                 * rng.standard_normal((4, cm.ntheta)), cm.spec.vmin,
+                 cm.spec.vmax)
+    ctx = [np.repeat(np.asarray(x)[None], 4, 0)
+           for x in (cm.psi0, *pt._obs_arrays())]
+    scfg = grid.mcmc_solver_cfg()
+    cP = grid.chi_sqr_fn(cm, PointCascadia, "rayleigh", scfg)(
+        torch.as_tensor(th, device=dev),
+        tuple(torch.as_tensor(x, device=dev) for x in ctx),
+        torch.zeros((4, len(PERIODS)), dtype=torch.float32,
+                    device=dev))[3].double().cpu()
+    check(bool((cP > 0).all()), "MALA gradient check: a root failed")
+    grads, gsec = {}, {}
+    for where in (str(dev), "cpu"):
+        g = mala._grad_chi_lane(cm, PointCascadia, scfg, "rayleigh")
+        a = [torch.as_tensor(x, device=where)
+             for x in (th, ctx[0], ctx[1], cP, *ctx[2:])]
+        grads[where], gsec[where] = sync_time(lambda: g(*a).cpu().numpy())
+    gd, gc = grads[str(dev)], grads["cpu"]
+    rel = float((np.abs(gd - gc).max(axis=1)
+                 / np.abs(gc).max(axis=1)).max())
+    check(np.isfinite(gd).all() and rel <= 1e-9,
+          f"MALA gradient card vs CPU: {rel:.3e} of each lane's max > 1e-9")
+    res["grad_card_vs_cpu"] = dict(rel_err=rel,
+                                   card_s=round(gsec[str(dev)], 3),
+                                   cpu_s=round(gsec["cpu"], 3))
+    log(f"[exp] MALA gradient (4 lanes, float64): card vs CPU {rel:.3e} of "
+        f"each lane's max (held to 1e-9); card {gsec[str(dev)]:.3f} s, CPU "
+        f"{gsec['cpu']:.3f} s ({card})")
+
+    # ---- the tree-product single-model solve ------------------------------
+    b0 = [a[0].to(torch.float64) for a in arrs]
+    p64 = periods.to(torch.float64)
+    for wave in ("rayleigh", "love"):
+        sec, sol = {}, {}
+        for bk in ("auto", "xla_assoc", "auto", "xla_assoc"):  # second: time
+            (c, _, ok), sec[bk] = sync_time(lambda: surf_forward(
+                *b0, p64, int(nl[0]), wave=wave, cfg=SurfConfig(backend=bk)))
+            sol[bk] = (c, ok)
+        (c0, ok0), (c1, ok1) = sol["auto"], sol["xla_assoc"]
+        dc = float((c1 - c0).abs().max())
+        check(bool(ok0.all()) and torch.equal(ok0, ok1) and dc <= 5e-5,
+              f"xla_assoc {wave}: ok {ok1.tolist()} vs {ok0.tolist()}, "
+              f"max|dc| {dc:.3e} > 5e-5")
+        res[f"assoc_{wave}"] = dict(
+            max_dc=dc, sequential_s_per_curve=round(sec["auto"], 3),
+            assoc_s_per_curve=round(sec["xla_assoc"], 3))
+        log(f"[exp] surf_forward float64 bench model 0 {wave}, "
+            f"{len(p64)} periods: xla_assoc {sec['xla_assoc']:.3f} s per "
+            f"curve, sequential {sec['auto']:.3f} s; max|dc| {dc:.3e} km/s "
+            f"(<= 5e-5) ({card})")
+    return launches, res
 
 
 def model3d_phase(invdir, dev, card):

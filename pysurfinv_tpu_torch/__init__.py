@@ -2,13 +2,17 @@
 
 The batched surface-wave dispersion solve of the JAX package (one wave,
 or both with ``surf_forward_joint``), the single-model solve with
-overtones, the MCMC samplers (batched and per-chain) with
-``invert_grid``'s checkpoints, lane ranges over several devices and
-streamed npz writer, the host inversion surface, the posterior comparator, the
-analysis surface (sensitivity kernels, eigenfunctions, energy integrals,
+overtones (also on the tree-product secular functions,
+``SurfConfig(backend="xla_assoc")``), the MCMC samplers (batched and
+per-chain) with ``invert_grid``'s checkpoints, lane ranges over several
+devices and streamed npz writer, the experimental samplers (adaptive
+Metropolis ``adaptive_point``, the tuned random walk
+``tuned_rwm_point``, MALA ``mala_point`` with its likelihood gradient),
+the host inversion surface, the posterior comparator, the analysis
+surface (sensitivity kernels, eigenfunctions, energy integrals,
 ``SensKernel``) and the 3-D host analysis (``Model3D``, ``geo/``), on
-PyTorch tensors, with the four secular-function
-kernels written by hand in CUDA C++ for Hopper (``csrc/``).  Module paths mirror the JAX
+PyTorch tensors, with the four secular-function kernels written by hand
+in CUDA C++ for Hopper (``csrc/``).  Module paths mirror the JAX
 package so each counterpart is easy to find; the JAX package is the
 reference the port is tested against and is never imported here.
 
@@ -30,7 +34,7 @@ from pysurfinv_tpu_torch.ops.dispersion import (  # noqa: F401
 
 
 def __getattr__(name):
-    """Lazy re-exports of the model layer, the sampler (they pull in
+    """Lazy re-exports of the model layer, the samplers (they pull in
     scipy), the analysis surface and the 3-D host analysis."""
     _lazy = {
         "buildModel1D": "pysurfinv_tpu_torch.models.model1d",
@@ -49,11 +53,17 @@ def __getattr__(name):
         "invert_grid": "pysurfinv_tpu_torch.parallel.grid",
         "points_devices": "pysurfinv_tpu_torch.parallel.mesh",
         "Model3D": "pysurfinv_tpu_torch.geo.model3d",
+        "Model1D_Exchange": "pysurfinv_tpu_torch.geo.exchange",
+        "Model3D_Exchange": "pysurfinv_tpu_torch.geo.exchange",
         "SensKernel": "pysurfinv_tpu_torch.senskernel",
         "SensKernelPert": "pysurfinv_tpu_torch.senskernel",
         "sensitivity_kernels": "pysurfinv_tpu_torch.ops.kernels",
         "eigenfunctions": "pysurfinv_tpu_torch.ops.eigen",
         "eigenfunctions_regular": "pysurfinv_tpu_torch.ops.eigen",
+        "mala_point": "pysurfinv_tpu_torch.inversion.mala",
+        "adaptive_point": "pysurfinv_tpu_torch.inversion.adaptive",
+        "tuned_rwm_point": "pysurfinv_tpu_torch.inversion.adaptive",
+        "AdaptConfig": "pysurfinv_tpu_torch.inversion.adaptive",
     }
     if name in _lazy:
         import importlib

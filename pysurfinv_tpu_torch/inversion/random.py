@@ -113,6 +113,17 @@ def uniform(keys, shape=(), dtype=torch.float64, minval=0.0, maxval=1.0):
     return torch.maximum(minval, f * (maxval - minval) + minval)
 
 
+def normal(keys, shape=(), dtype=torch.float64):
+    """``jax.random.normal(key, shape, dtype)`` for every key: the
+    inverse-CDF draw ``sqrt(2) erfinv(u)`` with u uniform in
+    ``[nextafter(-1, 0), 1)``."""
+    one = torch.ones((), dtype=dtype, device=keys.device)
+    u = uniform(keys, shape, dtype, minval=torch.nextafter(-one, 0 * one),
+                maxval=one)
+    return torch.tensor(math.sqrt(2.0), dtype=dtype,
+                        device=keys.device) * torch.erfinv(u)
+
+
 def truncated_normal(keys, lower, upper, shape, dtype=torch.float64):
     """``jax.random.truncated_normal(key, lower, upper, shape, dtype)``
     for every key: the inverse-CDF draw ``sqrt(2) erfinv(u)`` with u

@@ -50,6 +50,8 @@ from pysurfinv_tpu_torch.ops.flatten import H_MIN, model_preamble
 from pysurfinv_tpu_torch.ops.secular import (
     attenuation_rescale, effective_halfspace, love_secular, rayleigh_amplitude,
     rayleigh_ellipticity, rayleigh_secular)
+from pysurfinv_tpu_torch.ops.secular_assoc import (love_secular_assoc,
+                                                   rayleigh_secular_assoc)
 from pysurfinv_tpu_torch.ops.secular_lanes import (
     RAYLEIGH_NAMES, refine_lanes, secular_lanes, secular_lanes_frozen,
     secular_lanes_grad)
@@ -82,7 +84,12 @@ class SurfConfig:
     backend: str = "auto"     # "auto": CUDA kernels for CUDA tensors,
     #                           plain versions for CPU tensors;
     #                           "plain": plain versions on any device;
-    #                           "kernel": CUDA kernels, raise on CPU
+    #                           "kernel": CUDA kernels, raise on CPU;
+    #                           "xla_assoc": the single-model solve on
+    #                           the tree-product secular functions
+    #                           (ops/secular_assoc.py, an eager
+    #                           cross-check), the batched solve on the
+    #                           plain versions
     fuse_illinois: bool = False  # one refine_lanes launch
     fhandoff: bool = False    # seed the refinement with the bracket
     #                           sweep's endpoint secular values
@@ -192,7 +199,9 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
     Returns (c, u, ok), each (B, P, nmodes); c and u are 0 where ok is
     False.
     """
-    backend = cfg.backend
+    # "xla_assoc" names the JAX package's non-Pallas path: the plain
+    # versions here
+    backend = "plain" if cfg.backend == "xla_assoc" else cfg.backend
     B = h.shape[0]
     dtype, device = h.dtype, h.device
     nlay = torch.as_tensor(nlay, device=device).to(torch.int32)
@@ -566,19 +575,20 @@ def surf_forward_joint(h, vp, vs, rho, qsinv, periods, nlay,
 # ---- the single-model solve on the eager oracle (ops/secular.py) -------
 
 
-def _secular_fn(wave):
+def _secular_fn(wave, assoc=False):
     """F(c, t, mdl, mm) of the eager oracle, ``mdl = (a, b, rho, d)``
-    (L,) or (..., L) arrays broadcast against c's batch shape."""
+    (L,) or (..., L) arrays broadcast against c's batch shape; ``assoc``
+    takes the tree-product form of :mod:`.secular_assoc`."""
     def model(c, mdl, mm):
         shp = torch.broadcast_shapes(c.shape, mm.shape, mdl[0].shape[:-1])
         return [x.expand(*shp, x.shape[-1]) for x in mdl]
 
+    ray, lov = ((rayleigh_secular_assoc, love_secular_assoc) if assoc
+                else (rayleigh_secular, love_secular))
     if wave in RAYLEIGH_NAMES:
-        return lambda c, t, mdl, mm: rayleigh_secular(
-            c, t, *model(c, mdl, mm), mm)
+        return lambda c, t, mdl, mm: ray(c, t, *model(c, mdl, mm), mm)
     if wave in ("love", "lov", "L"):
-        return lambda c, t, mdl, mm: love_secular(
-            c, t, *model(c, mdl, mm)[1:], mm)
+        return lambda c, t, mdl, mm: lov(c, t, *model(c, mdl, mm)[1:], mm)
     raise ValueError(f"unknown wave type: {wave}")
 
 
@@ -656,13 +666,15 @@ def surf_forward(h, vp, vs, rho, qsinv, periods, nlay,
 
     Counterpart of the JAX package's single-model ``surf_forward``, on
     the eager oracle: every secular evaluation is a loop over layers of
-    PyTorch ops in the inputs' dtype, on their device (no kernel;
-    ``cfg.backend`` is ignored).  Phase 1 brackets each (period, mode)
-    in turn (the cold first period, warm starts ``warm_backoff * dc``
-    below the previous bracket, overtones 0.1 dc above a 12-iteration
-    estimate of the previous mode's root, a cold rescue pass when a
-    sparse period list outruns the warm window), phase 2 refines every
-    lane at once by Illinois, phase 3 takes u from forward-mode tangents.
+    PyTorch ops in the inputs' dtype, on their device (no kernel), or
+    with ``cfg.backend == "xla_assoc"`` the tree-product form of
+    :mod:`.secular_assoc` (any other backend is ignored).  Phase 1
+    brackets each (period, mode) in turn (the cold first period, warm
+    starts ``warm_backoff * dc`` below the previous bracket, overtones
+    0.1 dc above a 12-iteration estimate of the previous mode's root, a
+    cold rescue pass when a sparse period list outruns the warm window),
+    phase 2 refines every lane at once by Illinois, phase 3 takes u from
+    forward-mode tangents.
 
     Args:
       h, vp, vs, rho, qsinv: (L,) padded model; layer ``nlay-1`` is the
@@ -680,7 +692,7 @@ def surf_forward(h, vp, vs, rho, qsinv, periods, nlay,
     nl = torch.as_tensor(nlay, device=device).reshape(())
     kind = 1 if wave in ("love", "lov", "L") else 2
     h_eff, fac = model_preamble(h, nl, kind, cfg.flat)
-    F = _secular_fn(wave)
+    F = _secular_fn(wave, assoc=cfg.backend == "xla_assoc")
     nmodes, P, dc = cfg.nmodes, periods.shape[0], cfg.dc
 
     def chain(ok):

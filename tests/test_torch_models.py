@@ -99,6 +99,8 @@ PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
                 "pysurfinv_tpu_torch.inversion.priors",
                 "pysurfinv_tpu_torch.inversion.compiled",
                 "pysurfinv_tpu_torch.inversion.mcmc",
+                "pysurfinv_tpu_torch.inversion.adaptive",
+                "pysurfinv_tpu_torch.inversion.mala",
                 "pysurfinv_tpu_torch.inversion.point",
                 "pysurfinv_tpu_torch.inversion.parity",
                 "pysurfinv_tpu_torch.parallel.grid",
@@ -109,20 +111,24 @@ PORT_MODULES = ("pysurfinv_tpu_torch", "pysurfinv_tpu_torch.convert",
                 "pysurfinv_tpu_torch.geo.decorations",
                 "pysurfinv_tpu_torch.ops.kernels",
                 "pysurfinv_tpu_torch.ops.eigen",
+                "pysurfinv_tpu_torch.ops.secular_assoc",
                 "pysurfinv_tpu_torch.senskernel",
                 "pysurfinv_tpu_torch.data.prem")
 
 
 def test_port_imports_no_jax():
     """The port's modules, their lazy exports (PostPoint, fast_surf, the
-    analysis surface) and chip_smoke.py, which runs where JAX is absent,
-    import neither JAX nor the JAX package."""
+    analysis surface, the experimental samplers) and chip_smoke.py, which
+    runs where JAX is absent, import neither JAX nor the JAX package."""
     code = ("import sys, runpy, " + ", ".join(PORT_MODULES) + "; "
             "from pysurfinv_tpu_torch import PostPoint, fast_surf; "
             "from pysurfinv_tpu_torch import Model3D, PureGird, "
             "points_devices; "
             "from pysurfinv_tpu_torch import SensKernel, sensitivity_kernels, "
             "eigenfunctions_regular; "
+            "from pysurfinv_tpu_torch import Model1D_Exchange, "
+            "Model3D_Exchange, mala_point, adaptive_point, tuned_rwm_point, "
+            "AdaptConfig; "
             "from pysurfinv_tpu_torch.inversion.point import "
             "PostPointCascadia; "
             "runpy.run_path('chip_smoke.py', run_name='chip_smoke'); "

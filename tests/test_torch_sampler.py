@@ -112,6 +112,26 @@ def test_threefry_streams_match_jax_random():
     assert ((z_t.numpy() > lo) & (z_t.numpy() < hi)).all()
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("shape", [(), (7,)])
+def test_normal_matches_jax_random(dtype, shape):
+    """``random.normal`` against ``jax.random.normal`` per lane key, the
+    adaptive and MALA samplers' draw: rtol 1e-12 in float64 (as
+    ``truncated_normal``); in float32 rtol 1e-5, the erfinv of the two
+    libraries differing by up to 5.6e-6 relative in the tails (measured
+    over 140,000 draws; 9.6e-7 on these 256 keys x 7)."""
+    lane = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(7), i))(
+        jnp.arange(256))
+    z_j = np.asarray(jax.vmap(lambda k: jax.random.normal(
+        k, shape, getattr(jnp, dtype)))(lane))
+    z_t = R.normal(lane_keys_from_numpy(np.asarray(lane), device="cpu"),
+                   shape, getattr(torch, dtype))
+    assert z_t.dtype == getattr(torch, dtype)
+    assert tuple(z_t.shape) == z_j.shape == (256,) + shape
+    np.testing.assert_allclose(z_t.numpy(), z_j,
+                               rtol=1e-12 if dtype == "float64" else 1e-5)
+
+
 # ---------------------------------------------------------------------------
 # (d) the compiled model
 # ---------------------------------------------------------------------------

@@ -83,3 +83,46 @@ def root_brackets(c, t, model, nlay, wave, c0=0.5, n=460):
                                    dtype=torch.int32), *model, nlay,
                                    wave=wave)
     return lo, hi, mm
+
+
+def _standin_c(xp, h, vs, per):
+    """c (B, P) of the stand-in solve; ``xp`` is torch or jax.numpy."""
+    if per.ndim == 1:
+        per = per[None]
+    z = xp.cumsum(h, -1) - 0.5 * h
+    w = xp.exp(-z[:, None, :] / (1.2 * per[:, :, None])) * h[:, None, :]
+    return 0.9 * xp.sum(w * vs[:, None, :], -1) / xp.sum(w, -1)
+
+
+def standin_solve_torch(h, vp, vs, rho, qsinv, periods, nlay,
+                        wave="rayleigh", cfg=None, c_warm=None,
+                        round32=True):
+    """A closed-form stand-in for the port's ``surf_forward_batch``: a
+    smooth function of the built profile (a depth-weighted mean Vs per
+    period, the weight exp(-z / 1.2 T)), returning ``(c, u, ok)`` of the
+    solve's (B, P, 1) shapes, float64.  ``round32`` rounds the profile to
+    float32 first: the port's sampler hands the solve float32 profiles,
+    the JAX package's float64 ones, and both then feed the formula the
+    same numbers."""
+    import torch
+
+    h, vs, periods = (torch.as_tensor(x) for x in (h, vs, periods))
+    if round32:
+        h, vs, periods = (x.to(torch.float32) for x in (h, vs, periods))
+    c = _standin_c(torch, *(x.to(torch.float64)
+                            for x in (h, vs, periods)))[..., None]
+    return c, c, torch.ones(c.shape, dtype=torch.bool, device=c.device)
+
+
+def standin_solve_jax(h, vp, vs, rho, qsinv, periods, nlay,
+                      wave="rayleigh", cfg=None, c_warm=None, round32=True):
+    """:func:`standin_solve_torch` for the JAX package's
+    ``surf_forward_batch``."""
+    import jax.numpy as jnp
+
+    h, vs, periods = (jnp.asarray(x) for x in (h, vs, periods))
+    if round32:
+        h, vs, periods = (x.astype(jnp.float32) for x in (h, vs, periods))
+    c = _standin_c(jnp, *(x.astype(jnp.float64)
+                          for x in (h, vs, periods)))[..., None]
+    return c, c, jnp.ones(c.shape, bool)
