@@ -1,0 +1,13 @@
+"""prior_idle_ms_per_step.survey: the device-idle time of the traced
+window that falls inside the program's ``pysurfinv.prior`` spans (the
+retry rounds' prior, profile build included), in ms per Metropolis
+step."""
+
+from harness.program_spans import idle_in_spans_s
+
+
+def read(ctx):
+    s = idle_in_spans_s(ctx.trace, "pysurfinv.prior")
+    if s is None:
+        return None
+    return 1e3 * s / (ctx.work / ctx.lanes)

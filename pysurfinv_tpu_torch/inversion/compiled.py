@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pysurfinv_tpu_torch import profiling
 from pysurfinv_tpu_torch.inversion import priors as P
 from pysurfinv_tpu_torch.models.brownian import BrownianVar
 from pysurfinv_tpu_torch.models.layers import OceanMantleHybrid
@@ -310,6 +311,7 @@ class CompiledModel:
         if model_type in ("CascadiaPrism", "CascadiaContinent"):
             ok &= (vs < 4.9).all(dim=1)
         if "Ocean" in model_type:
+            profiling.count("host_syncs")    # int(mantle.sum()) below
             meanM = (torch.where(mantle, vs, 0.0).sum(dim=1)
                      / max(int(mantle.sum()), 1))
             ok &= P.local_extrema_oscillation_lanes(vs, mantle, 0.1 * meanM)

@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from pysurfinv_tpu_torch import profiling
 from pysurfinv_tpu_torch.inversion import random as R
 
 
@@ -121,16 +122,27 @@ def _propose(keys, thetas, spec, ctx, isgood, cfg: ChainConfig):
                         device=thetas.device)
     cand = thetas
     k = keys
-    for i in range(max_rounds):
-        ks = R.split(k)
-        k, k1 = ks[:, 0], ks[:, 1]
-        prop = _draw(i, k1[None], thetas, spec, cfg)[0]
-        good = isgood(prop, ctx) & ~found
-        cand = torch.where(good[:, None], prop, cand)
-        found = found | good
-        if bool(found.all()):
-            break
+    with profiling.annotate("pysurfinv.propose"):
+        for i in range(max_rounds):
+            with profiling.annotate("pysurfinv.draw"):
+                ks = R.split(k)
+                k, k1 = ks[:, 0], ks[:, 1]
+                prop = _draw(i, k1[None], thetas, spec, cfg)[0]
+            with profiling.annotate("pysurfinv.prior"):
+                profiling.count("propose.candidates", prop.shape[0])
+                good = isgood(prop, ctx) & ~found
+            cand = torch.where(good[:, None], prop, cand)
+            found = found | good
+            profiling.count("host_syncs")
+            if bool(found.all()):
+                break
     return cand, found
+
+
+def _n_unfound(found):
+    """The lanes still without a proposal: a host read."""
+    profiling.count("host_syncs")
+    return int((~found).sum())
 
 
 def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
@@ -166,14 +178,18 @@ def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
         M = th.shape[0]
         W = max(min(propose_flat // M, 64), 1)
         cxw = _tile(cx, W)
-        while r < max_rounds and int((~found).sum()) > stop_at:
-            kj = []
-            for _ in range(W):                  # the lanes' key chains
-                k2 = R.split(ks)
-                ks = k2[:, 0]
-                kj.append(k2[:, 1])
-            props = _draw(r, torch.stack(kj), th, sp, cfg)   # (W, M, P)
-            good = isgood(props.reshape(W * M, Pdim), cxw).reshape(W, M)
+        while r < max_rounds and _n_unfound(found) > stop_at:
+            with profiling.annotate("pysurfinv.draw"):
+                kj = []
+                for _ in range(W):              # the lanes' key chains
+                    k2 = R.split(ks)
+                    ks = k2[:, 0]
+                    kj.append(k2[:, 1])
+                props = _draw(r, torch.stack(kj), th, sp, cfg)  # (W, M, P)
+            with profiling.annotate("pysurfinv.prior"):
+                profiling.count("propose.candidates", W * M)
+                good = isgood(props.reshape(W * M, Pdim),
+                              cxw).reshape(W, M)
             first = torch.argmax(good.to(torch.int8), dim=0)
             has = good.any(dim=0)
             pick = props[first, torch.arange(M, device=dev)]
@@ -191,18 +207,22 @@ def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
         sizes.append(m)
         m //= ratio
 
-    found = torch.zeros(N, dtype=torch.bool, device=dev)
-    r, found, cand, ks = run_stage(0, found, thetas, keys, thetas, spec_b,
-                                   ctx_b, sizes[0] if sizes else 0)
-    for i, M in enumerate(sizes):
-        stop = sizes[i + 1] if i + 1 < len(sizes) else 0
-        idx = torch.argsort(found.to(torch.int8), stable=True)[:M]
-        r, f_s, c_s, k_s = run_stage(r, found[idx], cand[idx], ks[idx],
-                                     thetas[idx], _take(spec_b, idx),
-                                     _take(ctx_b, idx), stop)
-        found = found.index_put((idx,), f_s)
-        cand = cand.index_put((idx,), c_s)
-        ks = ks.index_put((idx,), k_s)
+    with profiling.annotate("pysurfinv.propose"):
+        found = torch.zeros(N, dtype=torch.bool, device=dev)
+        r, found, cand, ks = run_stage(0, found, thetas, keys, thetas,
+                                       spec_b, ctx_b,
+                                       sizes[0] if sizes else 0)
+        for i, M in enumerate(sizes):
+            stop = sizes[i + 1] if i + 1 < len(sizes) else 0
+            with profiling.annotate("pysurfinv.compact"):
+                idx = torch.argsort(found.to(torch.int8), stable=True)[:M]
+                part = (found[idx], cand[idx], ks[idx], thetas[idx],
+                        _take(spec_b, idx), _take(ctx_b, idx))
+            r, f_s, c_s, k_s = run_stage(r, *part, stop)
+            with profiling.annotate("pysurfinv.compact"):
+                found = found.index_put((idx,), f_s)
+                cand = cand.index_put((idx,), c_s)
+                ks = ks.index_put((idx,), k_s)
     return cand, found
 
 
@@ -252,6 +272,10 @@ def make_segmented_sampler(isgood, chi_sqr_batch, cfg: ChainConfig,
         return (theta, z, z, z, aux_init(spec_b, ctx_b))
 
     def segment_fn(carry, lane_keys, spec_b, ctx_b, s0, n_steps):
+        with profiling.annotate("pysurfinv.segment"):
+            return run_segment(carry, lane_keys, spec_b, ctx_b, s0, n_steps)
+
+    def run_segment(carry, lane_keys, spec_b, ctx_b, s0, n_steps):
         N = spec_b.theta0.shape[0]
         dtype = spec_b.theta0.dtype
         dev = spec_b.theta0.device
@@ -269,8 +293,9 @@ def make_segmented_sampler(isgood, chi_sqr_batch, cfg: ChainConfig,
                                        col(1.0), theta1], dim=1))
                 carry = (theta1, m0, chi0, L0, *aux)
                 continue
-            m1, chi1, L1, aux1 = eval_all(theta1, ctx_b,
-                                          aux[0] if aux else None)
+            with profiling.annotate("pysurfinv.likelihood"):
+                m1, chi1, L1, aux1 = eval_all(theta1, ctx_b,
+                                              aux[0] if aux else None)
             u = R.uniform(R.fold_in(lane_keys, 2 * r + 1), (), dtype=dtype)
             accept = (chi1 < chi0) | (u > 1.0 - torch.exp(-(chi1 - chi0) / 2))
             accept = accept & okp & (m1 < cfg.misfit_fail)

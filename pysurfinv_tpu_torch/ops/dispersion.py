@@ -46,6 +46,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from pysurfinv_tpu_torch import profiling
 from pysurfinv_tpu_torch.ops.flatten import H_MIN, model_preamble
 from pysurfinv_tpu_torch.ops.secular import (
     attenuation_rescale, effective_halfspace, love_secular, rayleigh_amplitude,
@@ -168,6 +169,12 @@ def _initial_c(h, vs, qsinv, nlay, t1, wave, cfg: SurfConfig):
     return torch.where(water_top, torch.full_like(c1, 0.5), c1)
 
 
+def _all(ok):
+    """``bool(ok.all())``: a host read of a device value."""
+    profiling.count("host_syncs")
+    return bool(ok.all())
+
+
 def _mode_chain(ok, dim):
     """Mode ordering along ``dim``: mode m is only valid if modes < m
     were found."""
@@ -199,6 +206,13 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
     Returns (c, u, ok), each (B, P, nmodes); c and u are 0 where ok is
     False.
     """
+    with profiling.annotate("pysurfinv.solve"):
+        return _solve_batch(h, vp, vs, rho, qsinv, periods, nlay, wave, cfg,
+                            c_warm)
+
+
+def _solve_batch(h, vp, vs, rho, qsinv, periods, nlay, wave, cfg, c_warm):
+    """The body of :func:`surf_forward_batch`."""
     # "xla_assoc" names the JAX package's non-Pallas path: the plain
     # versions here
     backend = "plain" if cfg.backend == "xla_assoc" else cfg.backend
@@ -332,30 +346,34 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
             alive = okk
             outs.append((lok, mmk, okk, flk, fhk))
         c_lo, mm, ok, f_lo, f_hi = (torch.stack(x) for x in zip(*outs))
-        if P == 1 or bool(ok.all()):
+        if P == 1 or _all(ok):
             return c_lo, mm, ok, f_lo, f_hi
 
         # ---- rescue pass: sparse period lists can outrun the warm-start
         # window; re-bracket every later period from a cold start (with
         # narrow=False so bracket widths keep the warm convention) and
         # take the cold result where the warm chain failed.
-        cold = [bracket_period(periods2[:, p], cold_starts(periods2[:, p]),
-                               cfg.nscan_first, cfg.coarse, narrow=False)
-                for p in range(1, P)]
-        lo_c, mm_c, ok_c, fl_c, fh_c = (torch.stack(x) for x in zip(*cold))
-        ok_c = chain(ok_c, 1)
-        use = ~ok[1:] & ok_c
-        ok_new = torch.cat([ok[:1], chain(ok[1:] | ok_c, 1)], 0)
-        mix = lambda a, b: torch.cat(  # noqa: E731
-            [a[:1], torch.where(use, b, a[1:])], 0)
-        return (mix(c_lo, lo_c), mix(mm, mm_c), ok_new,
-                mix(f_lo, fl_c), mix(f_hi, fh_c))
+        profiling.count("solve.rescues")
+        with profiling.annotate("pysurfinv.solve.rescue"):
+            cold = [bracket_period(periods2[:, p],
+                                   cold_starts(periods2[:, p]),
+                                   cfg.nscan_first, cfg.coarse, narrow=False)
+                    for p in range(1, P)]
+            lo_c, mm_c, ok_c, fl_c, fh_c = (torch.stack(x)
+                                            for x in zip(*cold))
+            ok_c = chain(ok_c, 1)
+            use = ~ok[1:] & ok_c
+            ok_new = torch.cat([ok[:1], chain(ok[1:] | ok_c, 1)], 0)
+            mix = lambda a, b: torch.cat(  # noqa: E731
+                [a[:1], torch.where(use, b, a[1:])], 0)
+            return (mix(c_lo, lo_c), mix(mm, mm_c), ok_new,
+                    mix(f_lo, fl_c), mix(f_hi, fh_c))
 
-    from_warm = None
-    if c_warm is not None and nmodes == 1:
-        # ---- fused warm bracket: ONE sweep for all (period, model)
-        # lanes, seeded from the caller's previous roots; lanes whose
-        # window misses fall back to the cold chain.
+    def warm_bracket(c_warm):
+        """Fused warm bracket: ONE sweep for all (period, model) lanes,
+        seeded from the caller's previous roots; lanes whose window
+        misses fall back to the cold chain.  Returns cold_bracket's
+        tuple and the lanes the warm window found, (P, 1, B)."""
         c_warm = torch.as_tensor(c_warm, device=device)
         w_nscan = cfg.wseed_nscan if cfg.wseed_nscan > 0 else cfg.nscan
         w_back = (cfg.wseed_backoff if cfg.wseed_backoff >= 0
@@ -386,15 +404,22 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
         c_lo, mm, ok, f_lo, f_hi = (x[:, None] for x in (
             w_lo, tk1(mm_r), w_found, tk0(Fr), tk1(Fr)))
         from_warm = ok
-        if not bool(ok.all()):
+        if not _all(ok):
+            profiling.count("solve.warm_fallbacks")
             cc_lo, cmm, cok, cf_lo, cf_hi = cold_bracket()
             c_lo = torch.where(from_warm, c_lo, cc_lo)
             mm = torch.where(from_warm, mm, cmm)
             ok = from_warm | cok
             f_lo = torch.where(from_warm, f_lo, cf_lo)
             f_hi = torch.where(from_warm, f_hi, cf_hi)
-    else:
-        c_lo, mm, ok, f_lo, f_hi = cold_bracket()
+        return (c_lo, mm, ok, f_lo, f_hi), from_warm
+
+    from_warm = None
+    with profiling.annotate("pysurfinv.solve.bracket"):
+        if c_warm is not None and nmodes == 1:
+            (c_lo, mm, ok, f_lo, f_hi), from_warm = warm_bracket(c_warm)
+        else:
+            c_lo, mm, ok, f_lo, f_hi = cold_bracket()
 
     # ---- phase 2: refine (P*nmodes, B) lanes ----------------------------
     KL = P * nmodes
@@ -431,55 +456,63 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
         # separated safeguarded Newton from the bracket midpoint: each
         # step clamped to the live bracket (midpoint fallback), the last
         # a clipped Newton polish
-        s_lo = _sign(flo_l if flo_l is not None
-                     else Ff(lo_l.contiguous(), t_l, mm_l))
-        cur_lo, cur_hi = lo_l, hi_l
-        x = 0.5 * (lo_l + hi_l)
-        for j in range(cfg.newton_sep):
-            f_j, fc_j, _ = Fg(x.contiguous(), t_l, mm_l)
-            same_lo = _sign(f_j) == s_lo
-            cur_lo = torch.where(same_lo, x, cur_lo)
-            cur_hi = torch.where(same_lo, cur_hi, x)
-            fc_safe = torch.where(fc_j.abs() > 0, fc_j, torch.ones_like(fc_j))
-            xn = x - f_j / fc_safe
-            if j == cfg.newton_sep - 1:
-                x = torch.minimum(torch.maximum(xn, cur_lo), cur_hi)
-            else:
-                bad = ~((xn > cur_lo) & (xn < cur_hi))
-                x = torch.where(bad, 0.5 * (cur_lo + cur_hi), xn)
-        root_l = x
+        with profiling.annotate("pysurfinv.solve.refine"):
+            s_lo = _sign(flo_l if flo_l is not None
+                         else Ff(lo_l.contiguous(), t_l, mm_l))
+            cur_lo, cur_hi = lo_l, hi_l
+            x = 0.5 * (lo_l + hi_l)
+            for j in range(cfg.newton_sep):
+                f_j, fc_j, _ = Fg(x.contiguous(), t_l, mm_l)
+                same_lo = _sign(f_j) == s_lo
+                cur_lo = torch.where(same_lo, x, cur_lo)
+                cur_hi = torch.where(same_lo, cur_hi, x)
+                fc_safe = torch.where(fc_j.abs() > 0, fc_j,
+                                      torch.ones_like(fc_j))
+                xn = x - f_j / fc_safe
+                if j == cfg.newton_sep - 1:
+                    x = torch.minimum(torch.maximum(xn, cur_lo), cur_hi)
+                else:
+                    bad = ~((xn > cur_lo) & (xn < cur_hi))
+                    x = torch.where(bad, 0.5 * (cur_lo + cur_hi), xn)
+            root_l = x
         if cfg.compute_group:
             # group velocity from tangents AT the refined root, plus the
             # free clipped Newton polish from the same launch
-            f_g, fc_g, ft_g = Fg(root_l.contiguous(), t_l, mm_l)
-            fc_safe = torch.where(fc_g.abs() > 0, fc_g, torch.ones_like(fc_g))
-            u_l = root_l / (1.0 - (t_l / root_l) * ft_g / fc_safe)
-            root_l = torch.minimum(torch.maximum(root_l - f_g / fc_safe,
-                                                 cur_lo), cur_hi)
+            with profiling.annotate("pysurfinv.solve.group"):
+                f_g, fc_g, ft_g = Fg(root_l.contiguous(), t_l, mm_l)
+                fc_safe = torch.where(fc_g.abs() > 0, fc_g,
+                                      torch.ones_like(fc_g))
+                u_l = root_l / (1.0 - (t_l / root_l) * ft_g / fc_safe)
+                root_l = torch.minimum(torch.maximum(root_l - f_g / fc_safe,
+                                                     cur_lo), cur_hi)
         else:
             u_l = torch.zeros_like(root_l)
     elif cfg.nnewton >= 1:
         # fused refine: all Illinois iterations + Newton tail + group
         # tangents in ONE kernel launch
-        root_l, u_l = refine(cfg.nnewton, cfg.compute_group)
+        with profiling.annotate("pysurfinv.solve.refine"):
+            root_l, u_l = refine(cfg.nnewton, cfg.compute_group)
     else:
-        if cfg.fuse_illinois:
-            # all Illinois iterations in ONE launch (same algorithm as
-            # illinois_lanes, without the endpoint handoff)
-            root_l, _ = refine(0, False)
-        else:
-            root_l = illinois_lanes(t_l, lo_l.contiguous(),
-                                    hi_l.contiguous(), mm_l, cfg.nbisect,
-                                    f_lo=flo_l, f_hi=fhi_l)
+        with profiling.annotate("pysurfinv.solve.refine"):
+            if cfg.fuse_illinois:
+                # all Illinois iterations in ONE launch (same algorithm as
+                # illinois_lanes, without the endpoint handoff)
+                root_l, _ = refine(0, False)
+            else:
+                root_l = illinois_lanes(t_l, lo_l.contiguous(),
+                                        hi_l.contiguous(), mm_l, cfg.nbisect,
+                                        f_lo=flo_l, f_hi=fhi_l)
         if cfg.compute_group:
             # u = c / (1 - (T/c) F_T/F_c) from the kernel's forward-mode
             # tangents; the same launch's (F, F_c) give one clamped
             # Newton polish of the Illinois root for free
-            f0_l, fc_l, ft_l = Fg(root_l.contiguous(), t_l, mm_l)
-            fc_l = torch.where(fc_l.abs() > 0, fc_l, torch.ones_like(fc_l))
-            u_l = root_l / (1.0 - (t_l / root_l) * ft_l / fc_l)
-            root_l = torch.minimum(torch.maximum(root_l - f0_l / fc_l, lo_l),
-                                   hi_l)
+            with profiling.annotate("pysurfinv.solve.group"):
+                f0_l, fc_l, ft_l = Fg(root_l.contiguous(), t_l, mm_l)
+                fc_l = torch.where(fc_l.abs() > 0, fc_l,
+                                   torch.ones_like(fc_l))
+                u_l = root_l / (1.0 - (t_l / root_l) * ft_l / fc_l)
+                root_l = torch.minimum(
+                    torch.maximum(root_l - f0_l / fc_l, lo_l), hi_l)
         else:
             u_l = torch.zeros_like(root_l)
 

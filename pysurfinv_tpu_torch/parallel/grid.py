@@ -40,6 +40,8 @@ import time
 import numpy as np
 import torch
 
+from pysurfinv_tpu_torch import profiling
+
 # seconds to wait before the n-th retry of a segment, times n
 RETRY_BACKOFF_S = 10.0
 
@@ -152,9 +154,14 @@ def _devices(device):
     return devs
 
 
-def _launch_counts():
-    from pysurfinv_tpu_torch.ops import secular_lanes as sl
-    return {k.__name__: k.launches for k in sl.KERNELS}
+def _delta(before, after):
+    """Counters counted between two :func:`profiling.counters` reads."""
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def _add(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
 
 
 def _run_lanes(job, lo, hi, device, checkpoint):
@@ -164,14 +171,16 @@ def _run_lanes(job, lo, hi, device, checkpoint):
     model, the point class, the configs), so the same call runs in this
     process or in a spawned one.  Returns a dict: ``tracks`` (n, chainL,
     3 + ntheta) float64 lane-major, ``lane_parts`` (each lane's deflate
-    chunks, or None), ``seconds`` and ``launches`` (the kernel launch
-    counts of this call).
+    chunks, or None), ``seconds``, ``launches`` (the kernel launch
+    counts of this call) and ``counters`` (what
+    :func:`profiling.counters` counted over it: the launches alone
+    unless counting is on).
     """
     from pysurfinv_tpu_torch.convert import spec_from_numpy
     from pysurfinv_tpu_torch.inversion.compiled import CompiledModel
 
     t0 = time.time()
-    before = _launch_counts()
+    before = profiling.counters()
     cm = CompiledModel(job["model"])
     sel = lambda x: np.ascontiguousarray(x[lo:hi])  # noqa: E731
     spec_l, psi_l = spec_from_numpy(tuple(sel(f) for f in job["spec"]),
@@ -194,10 +203,12 @@ def _run_lanes(job, lo, hi, device, checkpoint):
         tracks, lane_parts = _segments(job, cm, keys, spec_l, ctx_l,
                                        use_init, device, checkpoint,
                                        lane0=lo)
-    after = _launch_counts()
+    counted = _delta(before, profiling.counters())
     return dict(tracks=tracks, lane_parts=lane_parts,
                 seconds=time.time() - t0,
-                launches={k: after[k] - before[k] for k in after})
+                launches={k[len("kernel."):]: v for k, v in counted.items()
+                          if k.startswith("kernel.")},
+                counters=counted)
 
 
 def _segments(job, cm, keys, spec_l, ctx_l, use_init, device, checkpoint,
@@ -259,8 +270,10 @@ def _segments(job, cm, keys, spec_l, ctx_l, use_init, device, checkpoint,
             try:
                 new_carry, rows = seg_fn(carry, keys, spec_l, ctx_l, s,
                                          n_seg)
-                host_rows = rows.cpu().numpy()
-                host_carry = tuple(c.cpu().numpy() for c in new_carry)
+                with profiling.annotate("pysurfinv.store"):
+                    host_rows = rows.cpu().numpy()
+                    host_carry = tuple(c.cpu().numpy() for c in new_carry)
+                    profiling.count("host_syncs", 1 + len(host_carry))
             except RuntimeError as e:
                 if tries >= retries or not _transient(e):
                     raise
@@ -280,18 +293,21 @@ def _segments(job, cm, keys, spec_l, ctx_l, use_init, device, checkpoint,
                 continue
             tries = 0
             s += n_seg
-            store(host_rows, s)
+            with profiling.annotate("pysurfinv.store"):
+                store(host_rows, s)
             carry, sync = new_carry, (s, host_carry)
             n_done += 1
             if checkpoint:
                 # rows so far, time-major as the segments return them
                 tmp = checkpoint + ".tmp.npz"
-                with open(tmp, "wb") as fh:
-                    np.savez(fh, s=s, rows=np.moveaxis(tracks[:, :s], 0, 1),
-                             **ck_meta,
-                             **{f"carry{i}": c
-                                for i, c in enumerate(host_carry)})
-                os.replace(tmp, checkpoint)
+                with profiling.annotate("pysurfinv.checkpoint"):
+                    with open(tmp, "wb") as fh:
+                        np.savez(fh, s=s,
+                                 rows=np.moveaxis(tracks[:, :s], 0, 1),
+                                 **ck_meta,
+                                 **{f"carry{i}": c
+                                    for i, c in enumerate(host_carry)})
+                    os.replace(tmp, checkpoint)
             if (abort_after is not None and n_done >= abort_after
                     and s < chainL):
                 # testing hook: the process dies mid-run
@@ -309,13 +325,15 @@ def _segments(job, cm, keys, spec_l, ctx_l, use_init, device, checkpoint,
 def _range_main(job, lo, hi, device, checkpoint, n_threads):
     """Entry point of a spawned lane-range process."""
     torch.set_num_threads(n_threads)
-    return _run_lanes(job, lo, hi, device, checkpoint)
+    with profiling.counting(job["count"]):
+        return _run_lanes(job, lo, hi, device, checkpoint)
 
 
 def _run_ranges(job, devices, checkpoint, verbose, stats):
     """Split the job's lanes over ``devices``: in this process for one
     entry, else one spawned process per contiguous range (each range's
-    seconds and kernel launch counts go to ``stats["ranges"]``).
+    seconds, kernel launch counts and counters go to ``stats["ranges"]``,
+    its counters also into ``stats["counters"]``).
     Returns the lane-major tracks and the lanes' deflate chunks (or
     None)."""
     from pysurfinv_tpu_torch.parallel.mesh import lane_ranges
@@ -338,7 +356,9 @@ def _run_ranges(job, devices, checkpoint, verbose, stats):
         for j, ((lo, hi), r) in enumerate(zip(ranges, res)):
             stats.setdefault("ranges", []).append(
                 dict(device=str(devices[j]), lanes=(lo, hi),
-                     seconds=r["seconds"], launches=r["launches"]))
+                     seconds=r["seconds"], launches=r["launches"],
+                     counters=r["counters"]))
+            _add(stats.setdefault("counters", {}), r["counters"])
             if verbose:
                 print(f"invert_grid: range {j} lanes [{lo}, {hi}) on "
                       f"{devices[j]}: {r['seconds']:.1f} s")
@@ -403,10 +423,22 @@ def invert_grid(points, lonlats, outdir="mcdata", runN=24000, chainL=800,
                per tile, so tiled and untiled runs give the same tracks.
       pids:    optional output basenames overriding ``lon_lat``.
       stats:   optional dict the call fills (tiles add up): the seconds
-               of its phases (``setup``, ``segments``, ``write``) and,
-               for lane ranges, ``ranges``: each range's device, [lo,
-               hi) lanes, seconds and the kernel launch counts of its
-               process.
+               of its phases (``setup``, ``segments``, ``write``);
+               ``counters``, what :func:`..profiling.counters` counted
+               over the call (it runs inside ``profiling.counting()``),
+               the lane ranges' processes included: ``host_syncs`` (host
+               reads of device values: the retry rounds' counts of
+               unfound lanes, the prior's mantle count, the solve's
+               ``ok.all()``, each segment's rows and carry to the host),
+               ``propose.candidates`` (proposals the prior judged),
+               ``compress.busy_s`` (the streamed compressor's
+               worker-thread CPU seconds),
+               ``solve.warm_fallbacks`` / ``solve.rescues``
+               (solves whose warm window missed a lane / that ran the
+               rescue pass) and ``kernel.<name>`` (secular-lane
+               launches); and, for lane ranges, ``ranges``: each range's
+               device, [lo, hi) lanes, seconds, the kernel launch counts
+               and the ``counters`` of its process.
 
     Returns the list of written file paths.
     """
@@ -497,15 +529,19 @@ def invert_grid(points, lonlats, outdir="mcdata", runN=24000, chainL=800,
                    "PYSURFINV_STREAM_NPZ", "1") != "0"),
                ck_meta={"fmt": 3, "seed": seed + _lane_offset,
                         "runN": runN, "chainL": chainL, "K": K})
+    job["count"] = stats is not None
     stats = {} if stats is None else stats
     t_init = time.time()
-    tracks_buf, lane_parts = _run_ranges(
-        job, devices, checkpoint if sampler == "batched" else None, verbose,
-        stats)
-    t_run = time.time()
-
-    paths = write_chain_files(points, lonlats, outdir, tracks_buf, chainL,
-                              lane_parts=lane_parts, pids=pids)
+    with profiling.counting(job["count"]):
+        before = profiling.counters()
+        tracks_buf, lane_parts = _run_ranges(
+            job, devices, checkpoint if sampler == "batched" else None,
+            verbose, stats)
+        t_run = time.time()
+        paths = write_chain_files(points, lonlats, outdir, tracks_buf,
+                                  chainL, lane_parts=lane_parts, pids=pids)
+        _add(stats.setdefault("counters", {}),
+             _delta(before, profiling.counters()))
     for k, sec in (("setup", t_init - t0), ("segments", t_run - t_init),
                    ("write", time.time() - t_run)):
         stats[k] = stats.get(k, 0.0) + sec
@@ -566,8 +602,9 @@ def write_chain_files(points, lonlats, outdir, tracks, chainL,
         write_npz_precompressed(path, entries)
         return path
 
-    if K > 4:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            return list(pool.map(_write, range(K)))
-    return [_write(k) for k in range(K)]
+    with profiling.annotate("pysurfinv.write"):
+        if K > 4:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                return list(pool.map(_write, range(K)))
+        return [_write(k) for k in range(K)]

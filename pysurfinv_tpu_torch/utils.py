@@ -8,7 +8,11 @@ imported only inside the plotting helpers.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
+
+from pysurfinv_tpu_torch import profiling
 
 
 def savez_fast(path, compresslevel=1, **arrays):
@@ -66,7 +70,9 @@ class StreamingLaneCompressor:
     ``savez_fast`` output (one valid deflate stream).
 
     Feeds run on one worker thread; zlib releases the GIL, so the
-    compression runs beside the sampler's host loop.
+    compression runs beside the sampler's host loop.  While the counters
+    count (:mod:`..profiling`), the worker thread's CPU seconds on each
+    item go to the ``compress.busy_s`` counter.
     """
 
     def __init__(self, n_lanes, level=1):
@@ -90,12 +96,18 @@ class StreamingLaneCompressor:
                 return
             try:
                 buf, s0, s1 = item
+                timed = profiling.enabled()
+                if timed:
+                    c0 = time.thread_time()
                 for lane, obj in enumerate(self._objs):
                     # buf is (n_lanes, chainL, w) C-order: the slice is
                     # a contiguous view, zlib consumes it buffer-direct
                     c = obj.compress(buf[lane, s0:s1])
                     if c:
                         self._chunks[lane].append(c)
+                if timed:
+                    profiling.count("compress.busy_s",
+                                    time.thread_time() - c0)
             except Exception as e:  # noqa: BLE001 — surfaced in close()
                 self._err = e
 

@@ -225,19 +225,36 @@ def test_pure_layers_lane_mode_match_jax_vmap():
 
 
 def test_profiling_helpers(tmp_path):
-    """``profiling.throughput`` (best of synchronised windows) and
-    ``trace`` / ``annotate`` (a torch.profiler trace written as Chrome
-    JSON) on a CPU computation."""
+    """``trace`` / ``annotate`` (a torch.profiler trace written as Chrome
+    JSON) and the counters (``count``, ``counting``, ``counters``,
+    ``reset_counters``) on a CPU computation: a span and a count land
+    only while tracing is on."""
     from pysurfinv_tpu_torch import profiling
 
     x = torch.ones(64, 64, dtype=torch.float64)
-    res = profiling.throughput(lambda: x @ x, n_units=64, unit="rows",
-                               iters=2, windows=3)
-    assert len(res.windows_s) == 3 and res.best_s == min(res.windows_s)
-    assert res.value == pytest.approx(64 / res.best_s)
-    assert "rows/s" in str(res)
+    profiling.reset_counters()
+    with profiling.annotate("off"):
+        profiling.count("rows", 64)
+    assert "rows" not in profiling.counters()
     with profiling.trace(str(tmp_path / "tr")) as prof:
+        assert profiling.enabled()
         with profiling.annotate("matmul"):
             (x @ x).sum()
+        profiling.count("rows", 64)
     assert (tmp_path / "tr" / "trace.json").exists()
-    assert any(e.key == "matmul" for e in prof.key_averages())
+    keys = {e.key for e in prof.key_averages()}
+    assert "matmul" in keys and "off" not in keys
+    with profiling.counting():
+        profiling.count("rows", 0.5)
+        # the counters alone: a span stays the shared no-op context
+        assert profiling.annotate("x") is profiling.annotate("y")
+        assert not isinstance(profiling.annotate("x"),
+                              torch.profiler.record_function)
+    with profiling.counting(False):
+        profiling.count("rows", 1)
+    got = profiling.counters()
+    assert got["rows"] == 64.5 and not profiling.enabled()
+    assert {"kernel.secular_lanes", "kernel.refine_lanes"} <= set(got)
+    profiling.reset_counters()
+    assert "rows" not in profiling.counters()
+    assert not hasattr(profiling, "throughput")
