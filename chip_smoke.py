@@ -57,6 +57,18 @@ Phases, each of which raises on failure:
               secular_lanes_grad at K=1, 13 and 90; secular_lanes_frozen
               pinned and refine_lanes with n_newton 0, 1 and 2, u on and
               off, at K=1, 13 and 18);
+  3b. draws   the sampler's draw kernels (ops/draw_lanes.py, built into
+              their own library at the first CUDA key drawn from) against
+              their plain torch ops on the card, bit for bit, every launch
+              count set to 0 just before and checked after: a retry round
+              (draw_round) at each stage of the survey sampler's retry
+              pyramid (1,920 lanes x 1 draw down to 60 lanes x 34 draws,
+              P of the example point), wholly perturbing, straddling
+              n_perturb_rounds and wholly resetting; the step keys'
+              fold_in, the acceptance draw's uniform, the legacy
+              sampler's split(keys, chainL - 1) and the adaptive
+              sampler's normal; each call's time (CUDA events) beside its
+              plain ops';
   4. slice    the solve for Rayleigh (bench config), Love (nbisect 6), a
               warm Rayleigh re-solve with the sampler's settings
               (newton_sep=3) seeded with the Rayleigh roots, and Rayleigh
@@ -103,7 +115,7 @@ Phases, each of which raises on failure:
               finite where solved; the seconds of each call;
   5. sampler  on 2 points x 4 chains x 6 steps the sampler with the
               kernels gives the tracks of the sampler with the plain
-              versions; then the flagship workload four times, each run
+              versions (the solve's and the draws'); then the flagship workload four times, each run
               with every launch count set to 0 just before it: the first
               call checkpointed and killed after its first segment, then
               resumed from the checkpoint (the seconds of each half and
@@ -136,7 +148,8 @@ Phases, each of which raises on failure:
               at 2 lanes x 6 rows (the solver's separated Newton cut to
               1 iteration), adaptive_point, tuned_rwm_point and
               mala_point each give the same tracks with the kernels as
-              with the plain versions, bit for bit; then each at the
+              with the plain versions (the solve's and the draws'), bit
+              for bit; then each at the
               default lane count of its entry point, depth cut (AM: 6
               lanes, warmups 64/128/64, chainL 200; tuned RWM: 48 warm
               lanes, std_steps 128, rm_steps 32, 6 recorded lanes x 200;
@@ -174,6 +187,8 @@ runs (phases 3, 5 and 5c), and the analysis phase's eager float64 calls
 (~1 minute).
 """
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -343,6 +358,26 @@ def check(cond, what):
         raise AssertionError(f"chip_smoke: {what}")
 
 
+@contextlib.contextmanager
+def draws_on(backend):
+    """The sampler's draws on ``backend``.  They dispatch on the keys'
+    device, not on the solver's ``backend``: under "auto" they launch the
+    draw kernels on the card; "plain" forces the torch ops of the three
+    stream primitives and of the retry round."""
+    from unittest import mock
+
+    from pysurfinv_tpu_torch.inversion import mcmc
+    from pysurfinv_tpu_torch.inversion import random as R
+    with contextlib.ExitStack() as stack:
+        if backend == "plain":
+            for mod, name in ((R, "fold_in"), (R, "split"),
+                              (R, "random_bits"), (mcmc, "_draw_round")):
+                stack.enter_context(mock.patch.object(
+                    mod, name, functools.partial(getattr(mod, name),
+                                                 backend="plain")))
+        yield
+
+
 def bench_batch(B, seed):
     """bench.py:31-67 through the port's model layer: (B, 5, L) float32
     batch of h, vp, vs, rho, qsinv, and the real-layer count."""
@@ -398,6 +433,7 @@ def main():
                          "the port's smoke test needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     from pysurfinv_tpu_torch.convert import model_batch_from_numpy
+    from pysurfinv_tpu_torch.ops import draw_lanes as DL
     from pysurfinv_tpu_torch.ops import secular_lanes as sl
     from pysurfinv_tpu_torch.ops.dispersion import (SurfConfig, _illinois,
                                                     _initial_c,
@@ -574,6 +610,9 @@ def main():
                      lane_model, card)
 
     mark("kernels")
+    # ---- 3b. the draw kernels against their plain versions -------------
+    launches_draw, draws = draw_phase(dev, card)
+    mark("draws")
     # ---- 4. the solve ------------------------------------------------
     sl.reset_launch_counts()
     out_r = surf_forward_batch(*arrs, periods, nl, wave="rayleigh",
@@ -881,9 +920,32 @@ def main():
             sampler_ms={w: kern[(name + "_sampler", w)] for w in waves},
             **extra))
 
+    for k in DL.KERNELS:
+        name = k.__name__
+        runs = {r: mc[r]["launches"][name]
+                for r in ("default_first_call", "default", "lane_ranges",
+                          "nnewton2")}
+        kernels.append(dict(
+            name=name, route="cuda", source=DRAW_SOURCE,
+            replaces="jax.random under the JAX sampler's jit (no kernel)",
+            launches=(launches_draw[name] + launches_mc[name]
+                      + launches_exp[name] + mc["legacy"]["launches"][name]),
+            launches_draw_phase=launches_draw[name],
+            launches_sampler_path=launches_mc[name],
+            launches_by_sampler_run=runs,
+            launches_legacy=mc["legacy"]["launches"][name],
+            launches_experimental_path={
+                r: exp[r]["launches"][name]
+                for r in ("adaptive", "tuned_rwm", "mala")},
+            bitwise=all(c["bitwise"] for c in draws["calls"].values()
+                        if c["launches"][name]),
+            calls={w: c for w, c in draws["calls"].items()
+                   if c["launches"][name]}))
+
     log(f"[time] summary ({card}): solves/s " + json.dumps(
         {k: round(v, 1) for k, v in solves.items()}) + "; single-model "
         + json.dumps(single) + "; analysis " + json.dumps(analysis)
+        + "; draws " + json.dumps(draws)
         + "; sampler " + json.dumps(mc) + "; experimental "
         + json.dumps(exp)
         + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
@@ -922,6 +984,94 @@ def sweep_brackets(sl, root, tk, model, nlay, wave):
     return lo, (lo + 0.01).contiguous(), mm
 
 
+# the survey sampler's retry pyramid at its 1,920 lanes (propose_flat 2048,
+# propose_ratio 2, min_stage 32): each stage's lanes M and draws a lane a
+# round W = 2048 // M
+DRAW_STAGES = ((1920, 1), (960, 2), (480, 4), (240, 8), (120, 17), (60, 34))
+DRAW_SOURCE = "pysurfinv_tpu_torch/csrc/draw_lanes.cu"
+
+
+def draw_phase(dev, card):
+    """Phase 3b: the draw kernels against their plain torch ops on the
+    card at the survey's shapes (module docstring).  Returns (launches
+    summed over the phase, numbers)."""
+    import torch
+
+    from pysurfinv_tpu_torch.inversion import mcmc
+    from pysurfinv_tpu_torch.inversion import random as R
+    from pysurfinv_tpu_torch.inversion.compiled import (BrownianSpec,
+                                                        CompiledModel)
+    from pysurfinv_tpu_torch.ops import draw_lanes as DL
+
+    t0 = time.perf_counter()
+    _, info = DL.draw_library()
+    log(f"[draws] draw kernels: nvcc {info['seconds']:.1f} s, load total "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    pts, _ = mc_points(1)
+    ref = CompiledModel(pts[0].initMod).spec_of(pts[0].initMod)
+    P = ref.theta0.shape[0]
+    B = B_SAMPLER
+    g = torch.Generator().manual_seed(MC_SEED)
+    lanes = {f: torch.as_tensor(getattr(ref, f)).expand(B, P)
+             for f in BrownianSpec._fields}
+    theta = lanes["vmin"] + (lanes["vmax"] - lanes["vmin"]) * torch.rand(
+        B, P, generator=g, dtype=torch.float64)
+    spec = BrownianSpec(theta.to(dev), *(lanes[f].contiguous().to(dev)
+                                         for f in BrownianSpec._fields[1:]))
+    keys = R.fold_in(R.PRNGKey(MC_SEED), torch.arange(B)).to(dev)
+
+    launches = {k.__name__: 0 for k in DL.KERNELS}
+    calls = {}
+
+    def compare(what, call, want):
+        """``call`` on the kernels (with ``want`` launches of each) and
+        on the plain ops: bit for bit, and each one's ms a call."""
+        DL.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        n = {k.__name__: k.launches for k in DL.KERNELS}
+        check(n == {k: want.get(k, 0) for k in n},
+              f"draws {what}: launches {n}, expected {want}")
+        with draws_on("plain"):
+            plain = call()
+            check([k.launches for k in DL.KERNELS] == list(n.values()),
+                  f"draws {what}: the plain ops launched a draw kernel")
+            plain_ms = time_cuda(call, n=2, windows=2)
+        same = bitwise(got, plain)
+        check(same, f"draws {what}: the kernels differ from the plain ops")
+        ms = time_cuda(call, n=20)
+        for k, v in n.items():
+            launches[k] += v
+        calls[what] = dict(bitwise=same, launches=n,
+                           kernel_us=round(ms * 1e3, 2),
+                           plain_ms=round(plain_ms, 3))
+        log(f"[draws] {what}: bitwise {same}, launches {n}, "
+            f"{ms * 1e3:.2f} us (plain ops {plain_ms:.3f} ms) ({card})")
+
+    for M, W in DRAW_STAGES:
+        sub = BrownianSpec(*(x[:M] for x in spec))
+        for n_pert in sorted({W, W // 2, 0}, reverse=True):
+            cfg = mcmc.ChainConfig(n_perturb_rounds=n_pert)
+            compare(f"draw_round M={M} W={W} n_pert={n_pert}",
+                    lambda: mcmc._draw_round(0, keys[:M], sub.theta0, sub, W,
+                                             cfg),
+                    {"draw_round": 1})
+    compare(f"fold_in step key M={B}", lambda: R.fold_in(keys, 2 * 37),
+            {"fold_in": 1})
+    compare(f"uniform acceptance M={B}",
+            lambda: R.uniform(R.fold_in(keys, 2 * 37 + 1), (),
+                              dtype=torch.float64),
+            {"fold_in": 1, "random_bits": 1})
+    n_ch = MC_RUN_N // MC_CHAIN_L
+    compare(f"split legacy step keys {n_ch} x {MC_CHAIN_L - 1}",
+            lambda: R.split(keys[:n_ch], MC_CHAIN_L - 1), {"fold_in": 1})
+    compare(f"normal adaptive 6 x {P}",
+            lambda: R.normal(keys[:6], (P,), torch.float64),
+            {"random_bits": 1})
+    DL.reset_launch_counts()
+    return launches, dict(P=P, calls=calls)
+
+
 def mc_points(n):
     """bench.py:249-260: the reference's example point at n grid points,
     sedthk and lithoAge drawn from default_rng(0)."""
@@ -950,6 +1100,7 @@ def sampler_phase(sl, card):
     import torch
     from unittest import mock
 
+    from pysurfinv_tpu_torch.ops import draw_lanes as DL
     from pysurfinv_tpu_torch.parallel import grid
 
     out = tempfile.mkdtemp(prefix="chip_smoke_mc_")
@@ -958,16 +1109,21 @@ def sampler_phase(sl, card):
 
     # kernels against plain versions, through the whole sampler: 2 points
     # x 4 chains x 6 steps in 2 segments (a warm step of the plain
-    # versions takes ~10 s on the card)
+    # versions takes ~10 s on the card); the solve's backend and the draws'
     cfg0 = grid.mcmc_solver_cfg
     sub = {}
     for backend in ("auto", "plain"):  # auto: the kernels, on the card
+        DL.reset_launch_counts()
         with mock.patch.object(grid, "mcmc_solver_cfg",
-                               lambda b=backend: replace(cfg0(), backend=b)):
+                               lambda b=backend: replace(cfg0(), backend=b)),\
+                draws_on(backend):
             paths = grid.invert_grid(pts[:2], lls[:2],
                                      outdir=f"{out}/sub_{backend}", runN=24,
                                      chainL=6, seed=MC_SEED, segment=3,
                                      verbose=False)
+        drawn = [k.launches for k in DL.KERNELS]
+        check(all(drawn) if backend == "auto" else not any(drawn),
+              f"sampler {backend}: draw kernel launches {drawn}")
         sub[backend] = read_tracks(paths)
     a, b = sub["auto"], sub["plain"]
     same_theta = bool(np.array_equal(a[..., 2:], b[..., 2:]))
@@ -980,17 +1136,20 @@ def sampler_phase(sl, card):
         f"versions: thetas and accepts equal {same_theta}, max|dmisfit| "
         f"{dmis:.3e}, bitwise {bool(np.array_equal(a, b))} ({card})")
 
-    launches = {k.__name__: 0 for k in sl.KERNELS}
+    kernels = sl.KERNELS + DL.KERNELS
+    launches = {k.__name__: 0 for k in kernels}
     res, tracks = {}, {}
     flagship = dict(runN=MC_RUN_N, chainL=MC_CHAIN_L, seed=MC_SEED,
                     segment=MC_SEGMENT, verbose=False)
     need_default = ("secular_lanes", "secular_lanes_frozen",
-                    "secular_lanes_grad")
+                    "secular_lanes_grad", "draw_round", "fold_in",
+                    "random_bits")
 
     def drive(name, call, need, env=None):
         """Run ``call`` (-> (paths, launch counts)) with every count set
         to 0 just before; check the counts, the files and the tracks."""
         sl.reset_launch_counts()
+        DL.reset_launch_counts()
         with mock.patch.dict(os.environ, env or {}):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1023,7 +1182,7 @@ def sampler_phase(sl, card):
             f"{float(tr[..., 0].min()):.4f}, launches {got} ({card})")
 
     def counts():
-        return {k.__name__: k.launches for k in sl.KERNELS}
+        return {k.__name__: k.launches for k in kernels}
 
     # the first call: checkpointed, killed after its first segment (the
     # test hook raises KeyboardInterrupt), then resumed from the file
@@ -1103,7 +1262,7 @@ def sampler_phase(sl, card):
     drive("nnewton2",
           lambda: (grid.invert_grid(pts, lls, outdir=f"{out}/nnewton2",
                                     **flagship), counts()),
-          ("secular_lanes", "refine_lanes"),
+          ("secular_lanes", "refine_lanes", "draw_round"),
           env={"PYSURFINV_MCMC_NNEWTON": "2",
                "PYSURFINV_MCMC_NEWTON_SEP": "0"})
     check(res["nnewton2"]["launches"]["secular_lanes_grad"] == 0,
@@ -1238,18 +1397,24 @@ def legacy_check(dev, card):
     CPU tensors (accepts equal, thetas to 1e-10, misfits to 1e-9
     relative)."""
     from pysurfinv_tpu_torch.inversion.point import PointCascadia
+    from pysurfinv_tpu_torch.ops import draw_lanes as DL
     out = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
     sub = slice(0, 18, 4)
     tr, secs = {}, {}
     for name, device in (("card", dev), ("cpu", "cpu")):
         p = PointCascadia(MC_SETTING, dict(MC_LOCAL), periods=PERIODS[sub],
                           vels=MC_VELS[sub], uncers=MC_UNCERS[sub])
+        DL.reset_launch_counts()
         t0 = time.perf_counter()
         p.MCinvMP(f"{out}/{name}", pid="p", runN=8, chainL=4, seed=MC_SEED,
                   sampler="legacy", verbose=False, device=device)
         secs[name] = time.perf_counter() - t0
+        if name == "card":   # the card's draws on the draw kernels
+            drawn = {k.__name__: k.launches for k in DL.KERNELS}
         tr[name] = np.load(f"{out}/{name}/p.npz",
                            allow_pickle=True)["mcTrack"]
+    check(all(drawn.values()),
+          f"legacy sampler on the card: draw kernel launches {drawn}")
     a, b = tr["card"], tr["cpu"]
     check(a.shape == b.shape == (8, 9) and bool(np.isfinite(a).all()),
           f"legacy sampler: tracks {a.shape} / {b.shape}")
@@ -1266,9 +1431,10 @@ def legacy_check(dev, card):
         f"{secs['card']:.3f} s, CPU {secs['cpu']:.3f} s; accepts equal, "
         f"max|dtheta| {dth:.3e} (bitwise {bool(np.array_equal(a, b))}), "
         f"max misfit rel err {rel:.3e}, acceptance "
-        f"{float(a[:, 2].mean()):.3f} ({card})")
+        f"{float(a[:, 2].mean()):.3f}; the card's draw launches {drawn} "
+        f"({card})")
     return dict(card_s=round(secs["card"], 3), cpu_s=round(secs["cpu"], 3),
-                theta_abs_err=dth, misfit_rel_err=rel)
+                theta_abs_err=dth, misfit_rel_err=rel, launches=drawn)
 
 
 # phase 5c: the experimental samplers at the default lane counts of their
@@ -1301,6 +1467,7 @@ def experimental_phase(sl, arrs, nl, periods, dev, card):
     from pysurfinv_tpu_torch.inversion import adaptive, mala
     from pysurfinv_tpu_torch.inversion.compiled import CompiledModel
     from pysurfinv_tpu_torch.inversion.point import PointCascadia, PostPoint
+    from pysurfinv_tpu_torch.ops import draw_lanes as DL
     from pysurfinv_tpu_torch.ops.dispersion import SurfConfig, surf_forward
     from pysurfinv_tpu_torch.parallel import grid
 
@@ -1341,8 +1508,13 @@ def experimental_phase(sl, arrs, nl, periods, dev, card):
         for backend in ("auto", "plain"):   # auto: the kernels, on the card
             scfg = replace(grid.mcmc_solver_cfg(), backend=backend,
                            newton_sep=1)
-            (_, tr[backend]), secs[backend] = sync_time(lambda: run(
-                name, f"{out}/sub_{backend}", scfg=scfg, **small[name]))
+            DL.reset_launch_counts()
+            with draws_on(backend):
+                (_, tr[backend]), secs[backend] = sync_time(lambda: run(
+                    name, f"{out}/sub_{backend}", scfg=scfg, **small[name]))
+            drawn = [k.launches for k in DL.KERNELS]
+            check(any(drawn) if backend == "auto" else not any(drawn),
+                  f"{name} {backend}: draw kernel launches {drawn}")
         same = bool(np.array_equal(tr["auto"], tr["plain"]))
         check(same and tr["auto"].shape == (12, 9),
               f"{name}: tracks with the kernels differ from the plain "
@@ -1353,8 +1525,10 @@ def experimental_phase(sl, arrs, nl, periods, dev, card):
             f"{secs['plain']:.2f} s ({card})")
 
     # ---- the main runs: default lane counts, depth cut -------------------
-    launches = {k.__name__: 0 for k in sl.KERNELS}
-    need = ("secular_lanes", "secular_lanes_frozen", "secular_lanes_grad")
+    kernels = sl.KERNELS + DL.KERNELS
+    launches = {k.__name__: 0 for k in kernels}
+    need = ("secular_lanes", "secular_lanes_frozen", "secular_lanes_grad",
+            "fold_in", "random_bits")
     frozen = {}
     make_am = adaptive.make_adaptive_sampler
 
@@ -1409,9 +1583,10 @@ def experimental_phase(sl, arrs, nl, periods, dev, card):
             p.start()
         try:
             sl.reset_launch_counts()
+            DL.reset_launch_counts()
             (path, tr), sec = sync_time(lambda: run(name, f"{out}/main",
                                                     **kw))
-            got = {k.__name__: k.launches for k in sl.KERNELS}
+            got = {k.__name__: k.launches for k in kernels}
         finally:
             for p in patches[name]:
                 p.stop()

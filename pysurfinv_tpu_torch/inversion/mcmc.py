@@ -21,7 +21,9 @@ sampler, and the per-chain "legacy" kernel ``make_chain_kernel`` /
   * ``priori=True`` skips the forward entirely to sample the prior.
 
 Every draw is a pure function of (lane key, global row) through the
-counter-based streams of :mod:`.random`, with the JAX package's keying:
+counter-based streams of :mod:`.random`, with the JAX package's keying
+(on the card a retry round's draws are one kernel launch,
+:func:`_draw_round`):
 the tracks are those of the JAX sampler (the tests check them draw for
 draw), segmented runs equal monolithic ones, and a lane's track does not
 depend on which other lanes share its batch.
@@ -42,6 +44,8 @@ import torch
 
 from pysurfinv_tpu_torch import profiling
 from pysurfinv_tpu_torch.inversion import random as R
+from pysurfinv_tpu_torch.ops import draw_lanes as DL
+from pysurfinv_tpu_torch.ops._cuda_build import _resolve
 
 
 def _env_int(name, default):
@@ -81,12 +85,11 @@ def uniform_reset(keys, vmin, vmax, dtype):
     return vmin + u * (vmax - vmin)
 
 
-def _draw(r, keys, thetas, spec, cfg):
-    """The candidates of rounds r, r+1, ..., one per leading row of
-    ``keys`` (W, M, 2): a perturbation while the round is below
-    n_perturb_rounds, a uniform reset after (the same key feeds whichever
-    applies, as in the JAX sampler's select).  Returns (W, M, P)."""
-    n_pert = min(max(cfg.n_perturb_rounds - r, 0), keys.shape[0])
+def _draw(n_pert, keys, thetas, spec):
+    """The candidates of one leading row of ``keys`` (W, M, 2) each: a
+    perturbation for the first ``n_pert`` rows, a uniform reset after
+    (the same key feeds whichever applies, as in the JAX sampler's
+    select), in torch ops.  Returns (W, M, P)."""
     parts = []
     if n_pert:
         parts.append(truncated_step(keys[:n_pert], thetas, spec.step,
@@ -95,6 +98,30 @@ def _draw(r, keys, thetas, spec, cfg):
         parts.append(uniform_reset(keys[n_pert:], spec.vmin, spec.vmax,
                                    thetas.dtype))
     return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _draw_round(r, ks, thetas, spec, W, cfg, backend="auto"):
+    """The draws of retry rounds r .. r+W-1: every lane's key chain
+    (M, 2) walked W splits (key 0 of a split carries on, key 1 feeds a
+    draw) and a candidate from each subkey, a perturbation while the
+    round is below n_perturb_rounds and a uniform reset after.  CUDA keys
+    take one kernel launch (``draw_lanes.draw_round``), CPU keys the
+    torch walk and :func:`_draw`.  ``backend`` forces either, for the
+    tests; the plain side's candidates take their bits from
+    ``random.random_bits``, which follows the keys' device.  Returns the
+    walked keys and the candidates (W, M, P)."""
+    n_pert = min(max(cfg.n_perturb_rounds - r, 0), W)
+    if _resolve("draw_round", backend, ks):
+        profiling.count("draw.kernel_rounds")
+        return DL.draw_round(ks, thetas, spec.step, spec.vmin, spec.vmax,
+                             W, n_pert)
+    profiling.count("draw.plain_rounds")
+    kj = []
+    for _ in range(W):
+        k2 = R.split(ks, backend="plain")
+        ks = k2[:, 0]
+        kj.append(k2[:, 1])
+    return ks, _draw(n_pert, torch.stack(kj), thetas, spec)
 
 
 def _take(x, idx):
@@ -125,9 +152,8 @@ def _propose(keys, thetas, spec, ctx, isgood, cfg: ChainConfig):
     with profiling.annotate("pysurfinv.propose"):
         for i in range(max_rounds):
             with profiling.annotate("pysurfinv.draw"):
-                ks = R.split(k)
-                k, k1 = ks[:, 0], ks[:, 1]
-                prop = _draw(i, k1[None], thetas, spec, cfg)[0]
+                k, prop = _draw_round(i, k, thetas, spec, 1, cfg)
+                prop = prop[0]
             with profiling.annotate("pysurfinv.prior"):
                 profiling.count("propose.candidates", prop.shape[0])
                 good = isgood(prop, ctx) & ~found
@@ -180,12 +206,7 @@ def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
         cxw = _tile(cx, W)
         while r < max_rounds and _n_unfound(found) > stop_at:
             with profiling.annotate("pysurfinv.draw"):
-                kj = []
-                for _ in range(W):              # the lanes' key chains
-                    k2 = R.split(ks)
-                    ks = k2[:, 0]
-                    kj.append(k2[:, 1])
-                props = _draw(r, torch.stack(kj), th, sp, cfg)  # (W, M, P)
+                ks, props = _draw_round(r, ks, th, sp, W, cfg)  # (W, M, P)
             with profiling.annotate("pysurfinv.prior"):
                 profiling.count("propose.candidates", W * M)
                 good = isgood(props.reshape(W * M, Pdim),

@@ -13,6 +13,14 @@ calls the sampler makes, bit for bit, with the layout JAX uses by default
 A key is an int64 tensor of shape ``(..., 2)`` holding two 32-bit words
 (torch's uint32 arithmetic is thin, so every operation masks to 32 bits).
 Keys are explicit arguments everywhere; there is no global state.
+
+``fold_in``, ``split`` and ``random_bits`` (and the draws built on it)
+dispatch on the device of the keys: CPU keys take the torch ops here,
+the plain version (``_fold_in_plain``, ``_split_plain``,
+``_random_bits_plain``); CUDA keys launch one Threefry kernel a call
+(:mod:`pysurfinv_tpu_torch.ops.draw_lanes`), bitwise equal to the plain
+version on the card.  Their ``backend="plain"`` forces the torch ops on
+any device and ``backend="kernel"`` the kernel; they are for the tests.
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from pysurfinv_tpu_torch.ops import draw_lanes as DL
+from pysurfinv_tpu_torch.ops._cuda_build import _resolve
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -55,28 +66,46 @@ def PRNGKey(seed, device=None):
                         device=device)
 
 
-def fold_in(keys, data):
+def fold_in(keys, data, backend="auto"):
     """``jax.random.fold_in`` of every key in ``keys`` (..., 2) with
     ``data`` (an int, or an integer tensor broadcast against the keys'
     leading shape): the hash of the counter (0, data)."""
+    if _resolve("fold_in", backend, keys):
+        return DL.fold_in(keys, data)
+    return _fold_in_plain(keys, data)
+
+
+def _fold_in_plain(keys, data):
     data = torch.as_tensor(data, device=keys.device).to(torch.int64) & _M32
     y1, y2 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y1, y2), dim=-1)
 
 
-def split(keys, num=2):
+def split(keys, num=2, backend="auto"):
     """``jax.random.split(key, num)`` of every key: (..., num, 2).  Key
     ``i`` of the split is ``fold_in(key, i)``."""
+    if _resolve("split", backend, keys):
+        return DL.split(keys, num)
+    return _split_plain(keys, num)
+
+
+def _split_plain(keys, num=2):
     i = torch.arange(num, dtype=torch.int64, device=keys.device)
-    return fold_in(keys[..., None, :], i)
+    return _fold_in_plain(keys[..., None, :], i)
 
 
-def random_bits(keys, bit_width, shape):
+def random_bits(keys, bit_width, shape, backend="auto"):
     """``jax.random.bits`` of width 32 or 64 for every key: a tensor of
     shape ``keys.shape[:-1] + shape``.  64-bit words come back as the
     pair ``(hi, lo)`` of 32-bit halves (int64 tensors cannot hold the
     top bit unsigned)."""
+    if _resolve("random_bits", backend, keys):
+        return DL.random_bits(keys, bit_width, shape)
+    return _random_bits_plain(keys, bit_width, shape)
+
+
+def _random_bits_plain(keys, bit_width, shape):
     n = math.prod(shape)
     i = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(shape)
     lead = keys.shape[:-1]

@@ -44,21 +44,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from pysurfinv_tpu_torch.ops._cuda_build import (  # noqa: F401
+    BUILD_DIR, CSRC, NVCC_FLAGS, _launched, _nvcc, _resolve, build_library)
 
 TWO_PI = 6.283185307179586
 ACCUR = 1e-8  # regime-switch tolerance, surfa.f:191-192
 
 RAYLEIGH_NAMES = ("rayleigh", "ray", "R")
-_BACKENDS = ("auto", "plain", "kernel")
 
 
 def _is_rayleigh(wave):
@@ -527,67 +523,14 @@ def refine_lanes_plain(lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat,
 # CUDA build and launch
 # ---------------------------------------------------------------------------
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("secular_lane.cuh", "secular_lanes.cu")
-# --fmad=false: no fused multiply-adds, so a kernel performs the plain
-# version's IEEE operations in the same order.  Where F sits at the f32
-# noise floor (c above every layer's Vs, no truncation, ~86 oscillatory
-# layers) F's own f32 error reaches ~3e-2 of the column's max |F|
-# (plain f32 against plain f64 on the H100); contracted FMAs moved the
-# kernel ~1e-3 of that max away from the plain version there, past the
-# 1e-4 the two are held to.  No --use_fast_math: its approximate
-# expf/sinf move the sign of F near a root.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
-
-# where the kernel library is built, beside the package (git-ignored)
-BUILD_DIR = CSRC.parent.parent / "build" / "pysurfinv_tpu_torch"
-
-
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for p in cands:
-        if p and os.path.exists(p):
-            return p
-    raise RuntimeError("nvcc not found: the secular-lane kernels are built "
-                       "from csrc/ with the CUDA toolkit at first use")
 
 
 @functools.cache
 def kernel_library():
-    """Build (once per source hash) and load the kernel library.
-
-    Returns ``(lib, info)`` where ``info`` holds the build seconds (0 when
-    the library was already built), the library path and the compiler's
-    register/spill report.
-    """
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_DIR / h.hexdigest()[:16]
-    so = out_dir / "libsecular_lanes.so"
-    log = out_dir / "build.log"
-    seconds = 0.0
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libsecular_lanes.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / "secular_lanes.cu")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed building the secular-lane "
-                               f"kernels:\n{res.stdout}\n{res.stderr}")
-        log.write_text(res.stdout + res.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """Build (once per source hash) and load the secular-lane kernels:
+    ``(lib, info)`` as :func:`build_library` returns them."""
+    lib, info = build_library("secular_lanes", SOURCES, "secular_lanes.cu")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     model = [P] * 7  # vp, vs, rho, qsi, h_flat, vel_fac, rho_fac
     lib.secular_lanes_launch.argtypes = (
@@ -601,8 +544,6 @@ def kernel_library():
     for fn in (lib.secular_lanes_launch, lib.secular_lanes_frozen_launch,
                lib.secular_lanes_grad_launch, lib.refine_lanes_launch):
         fn.restype = ctypes.c_int
-    info = {"seconds": seconds, "path": str(so),
-            "log": log.read_text() if log.exists() else ""}
     return lib, info
 
 
@@ -652,20 +593,6 @@ def _check_mm(name, mm, c):
 
 def _ptrs(*xs):
     return [x.data_ptr() for x in xs]
-
-
-def _launched(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-
-
-def _resolve(name, backend, c):
-    if backend not in _BACKENDS:
-        raise ValueError(f"{name}: backend must be one of {_BACKENDS}")
-    if backend == "plain" or (backend == "auto" and c.device.type == "cpu"):
-        return False
-    return True
 
 
 def secular_lanes(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,

@@ -35,6 +35,8 @@ The spans (``pysurfinv.*``) and counters the program sets, and where:
     the rows into the track buffer and the compressor; the checkpoint
     write; the chain files);
   * counters: ``propose.candidates`` (candidates the prior judged),
+    ``draw.kernel_rounds`` / ``draw.plain_rounds`` (retry rounds drawn
+    by the CUDA kernel / by torch ops: one a ``pysurfinv.draw`` span),
     ``host_syncs`` (host reads of a device value on the sampler's and
     the solve's path), ``compress.busy_s`` (the streamed compressor's
     worker-thread CPU seconds),
@@ -108,11 +110,13 @@ def count(name: str, n=1):
 
 def counters() -> dict:
     """A snapshot of every counter, and ``kernel.<name>``: the launches
-    of each secular-lane entry point (``ops.secular_lanes.KERNELS``)."""
-    from pysurfinv_tpu_torch.ops.secular_lanes import KERNELS
+    of each secular-lane and draw entry point
+    (``ops.secular_lanes.KERNELS``, ``ops.draw_lanes.KERNELS``)."""
+    from pysurfinv_tpu_torch.ops import draw_lanes, secular_lanes
     with _lock:
         out = dict(_registry)
-    out.update({f"kernel.{k.__name__}": k.launches for k in KERNELS})
+    out.update({f"kernel.{k.__name__}": k.launches
+                for k in secular_lanes.KERNELS + draw_lanes.KERNELS})
     return out
 
 

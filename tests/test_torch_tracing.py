@@ -8,6 +8,9 @@ the CPU, at tiny sizes.
   nested as the program nests them, and ``host_syncs`` counts every
   host read of a device value the trace records.
 * ``propose.candidates`` counts the rows the prior judged.
+* ``draw.plain_rounds`` counts the ``pysurfinv.draw`` spans of a CPU
+  segment; on the card (a ``cuda``-marked test) ``draw.kernel_rounds``
+  and the round kernel's launches count them.
 * The tracks are bitwise the same with tracing on and off.
 * ``invert_grid(stats=)`` returns the counters of the call.
 """
@@ -30,6 +33,7 @@ from pysurfinv_tpu_torch.inversion.compiled import (BrownianSpec,
 from pysurfinv_tpu_torch.inversion.mcmc import (ChainConfig,
                                                 make_segmented_sampler)
 from pysurfinv_tpu_torch.inversion.point import PointCascadia
+from pysurfinv_tpu_torch.ops import draw_lanes as DL
 from pysurfinv_tpu_torch.ops.dispersion import surf_forward_batch
 from pysurfinv_tpu_torch.parallel.grid import invert_grid
 
@@ -183,6 +187,41 @@ def test_candidates_are_the_rows_the_prior_judged(priori):
     assert got["host_syncs"] >= 2 * len(rows)
     profiling.reset_counters()
     assert _registry() == {}
+
+
+def _draw_rounds(cm, lanes, tmp_path):
+    """A traced segment's ``pysurfinv.draw`` spans, its counters and the
+    round kernel's launches in it."""
+    segment = _segment(cm, lanes)
+    profiling.reset_counters()
+    n0 = DL.draw_round.launches
+    with profiling.trace(str(tmp_path / "tr")):
+        segment()
+        got = profiling.counters()
+    spans, _ = _spans(tmp_path / "tr" / "trace.json")
+    profiling.reset_counters()
+    return (sum(e["name"] == "pysurfinv.draw" for e in spans), got,
+            DL.draw_round.launches - n0)
+
+
+def test_plain_rounds_count_the_draw_spans(priori, tmp_path):
+    n_draw, got, launched = _draw_rounds(*priori, tmp_path)
+    assert got["draw.plain_rounds"] == n_draw > 0
+    assert "draw.kernel_rounds" not in got and launched == 0
+
+
+@pytest.mark.cuda
+def test_kernel_rounds_count_the_draw_spans(priori, tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    cm, lanes = priori
+    keys, spec_b, ctx_b, theta0, use_init = lanes
+    dev = lambda x: x.to("cuda")  # noqa: E731
+    lanes = (dev(keys), type(spec_b)(*map(dev, spec_b)),
+             tuple(map(dev, ctx_b)), dev(theta0), dev(use_init))
+    n_draw, got, launched = _draw_rounds(cm, lanes, tmp_path)
+    assert got["draw.kernel_rounds"] == n_draw == launched > 0
+    assert "draw.plain_rounds" not in got
 
 
 def test_tracks_are_the_same_with_tracing_on_and_off(priori, tmp_path):
