@@ -69,6 +69,14 @@ Phases, each of which raises on failure:
               sampler's split(keys, chainL - 1) and the adaptive
               sampler's normal; each call's time (CUDA events) beside its
               plain ops';
+  3c. prior   the prior (CompiledModel.isgood) replayed from its CUDA
+              graphs against its plain torch ops on the card, bit for
+              bit, at the survey sampler's two batch shapes (1,920 and
+              2,040 rows of the flagship's 64 points, thetas over their
+              bounds widened by a quarter), float64 and float32: two
+              batches, then the first again (a stale input buffer would
+              show), one capture a shape and replays only; each call's
+              time (CUDA events) beside its plain ops';
   4. slice    the solve for Rayleigh (bench config), Love (nbisect 6), a
               warm Rayleigh re-solve with the sampler's settings
               (newton_sep=3) seeded with the Rayleigh roots, and Rayleigh
@@ -613,6 +621,9 @@ def main():
     # ---- 3b. the draw kernels against their plain versions -------------
     launches_draw, draws = draw_phase(dev, card)
     mark("draws")
+    # ---- 3c. the prior's CUDA graphs against its plain ops ---------------
+    prior = prior_phase(card)
+    mark("prior")
     # ---- 4. the solve ------------------------------------------------
     sl.reset_launch_counts()
     out_r = surf_forward_batch(*arrs, periods, nl, wave="rayleigh",
@@ -945,7 +956,7 @@ def main():
     log(f"[time] summary ({card}): solves/s " + json.dumps(
         {k: round(v, 1) for k, v in solves.items()}) + "; single-model "
         + json.dumps(single) + "; analysis " + json.dumps(analysis)
-        + "; draws " + json.dumps(draws)
+        + "; draws " + json.dumps(draws) + "; prior " + json.dumps(prior)
         + "; sampler " + json.dumps(mc) + "; experimental "
         + json.dumps(exp)
         + f"; chip_smoke {time.perf_counter() - t_start:.1f} s"
@@ -1070,6 +1081,67 @@ def draw_phase(dev, card):
             {"random_bits": 1})
     DL.reset_launch_counts()
     return launches, dict(P=P, calls=calls)
+
+
+# the survey prior's batch shapes: the retry pyramid's stages 1,920 x 1 to
+# 240 x 8, and 120 x 17 and 60 x 34
+PRIOR_SHAPES = (1920, 2040)
+
+
+def prior_phase(card):
+    """Phase 3c: the prior's CUDA graphs against its plain ops on the card
+    at the survey's shapes (module docstring).  Returns its numbers."""
+    import torch
+
+    from pysurfinv_tpu_torch import profiling
+    from pysurfinv_tpu_torch.inversion.compiled import CompiledModel
+
+    pts, _ = mc_points(MC_POINTS)
+    mods = [p.initMod for p in pts]
+    g = torch.Generator().manual_seed(MC_SEED)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        cm = CompiledModel(mods[0])
+        specs = [cm.spec_of(m) for m in mods]
+        psis = np.stack([cm.psi_of(m) for m in mods])
+        for n in PRIOR_SHAPES:
+            idx = np.arange(n) % len(pts)
+            lo, hi = (torch.as_tensor(np.stack([getattr(specs[i], f)
+                                                for i in idx]))
+                      for f in ("vmin", "vmax"))
+            psi = torch.as_tensor(psis[idx]).to("cuda", dtype)
+
+            def batch():
+                u = torch.rand(lo.shape, generator=g, dtype=torch.float64)
+                return (lo - 0.25 * (hi - lo) + 1.5 * (hi - lo) * u).to(
+                    "cuda", dtype)
+
+            ths = [batch(), batch()]
+            profiling.reset_counters()
+            with profiling.counting():
+                got = [cm.isgood(th, psi) for th in ths + ths[:1]]
+            counted = profiling.counters()
+            profiling.reset_counters()
+            plain = [cm._isgood_plain(th, psi) for th in ths]
+            same = all(torch.equal(a, b) for a, b in
+                       zip(got, plain + plain[:1]))
+            what = f"{str(dtype)[6:]} N={n}"
+            check(same, f"prior {what}: the graph differs from the plain ops")
+            check(not torch.equal(plain[0], plain[1]),
+                  f"prior {what}: the two batches give one mask")
+            check(counted.get("prior.graph_captures") == 1
+                  and counted.get("prior.graph_replays") == 3
+                  and "prior.plain_calls" not in counted,
+                  f"prior {what}: counters {counted}")
+            ms = time_cuda(lambda: cm.isgood(ths[0], psi), n=20)
+            plain_ms = time_cuda(lambda: cm._isgood_plain(ths[0], psi), n=5)
+            out[what] = dict(bitwise=same, accepted=int(plain[0].sum()),
+                             graph_ms=round(ms, 4),
+                             plain_ms=round(plain_ms, 4))
+            log(f"[prior] {what}: bitwise {same}, "
+                f"{int(plain[0].sum())} of {n} lanes accepted, graph "
+                f"{ms:.3f} ms (plain ops {plain_ms:.3f} ms) ({card})")
+    return out
 
 
 def mc_points(n):

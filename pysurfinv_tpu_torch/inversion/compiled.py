@@ -19,6 +19,12 @@ Where the JAX package vmaps a per-model function, the lane axis is
 written out here: the layer catalog's lane mode
 (``models/layers.py``) builds all N grids at once.
 
+On CUDA the prior (:meth:`CompiledModel.isgood`) runs as one CUDA graph
+per batch shape: captured at the shape's first call, replayed after.  A
+round of the sampler's retry loop then launches one graph instead of
+~1,000 small kernels, each the same kernel in the same order, so the
+same bits.  CPU tensors run the ops one by one.
+
 Frozen-structure deviations from the reference (as in the JAX package):
   * per-layer fine-grid counts are locked to the initial model's values
     (the reference adapts them to the current H, layers.py:161-173);
@@ -29,6 +35,8 @@ Frozen-structure deviations from the reference (as in the JAX package):
 
 from __future__ import annotations
 
+import warnings
+from collections import OrderedDict
 from dataclasses import replace
 from typing import NamedTuple
 
@@ -39,12 +47,17 @@ from pysurfinv_tpu_torch import profiling
 from pysurfinv_tpu_torch.inversion import priors as P
 from pysurfinv_tpu_torch.models.brownian import BrownianVar
 from pysurfinv_tpu_torch.models.layers import OceanMantleHybrid
+from pysurfinv_tpu_torch.utils import device_constant
 
 # parm keys that select static structure and never become lane values
 _STATIC_KEYS = {"deg", "Conversion"}
 # info keys whose numeric values vary per grid point
 _INFO_KEYS = ("topo", "lithoAge")
 _COLS = ("vs", "vp", "rho", "qs", "qp")
+# prior graphs kept per compiled model, the least recently used dropped
+# first: the survey's pyramid needs two, the adaptive samplers and the
+# parity wrapper's single rows a few more
+_GRAPHS_KEPT = 8
 
 
 class BrownianSpec(NamedTuple):
@@ -146,6 +159,11 @@ class CompiledModel:
         self._layer_of_node_main = np.repeat(
             np.arange(self._n_main, dtype=np.int64),
             self._node_counts[: self._n_main])
+        self._n_mantle = max(int(np.sum(
+            self.grp_nodes[: self._n_nodes_main] == "mantle")), 1)
+        self._consts = {}                 # the prior's tables per device
+        self._graphs = OrderedDict()      # the prior's CUDA graphs
+        self._pools = {}                  # device -> the pool they share
 
     # ---- per-point parameter extraction --------------------------------
     def spec_of(self, model) -> BrownianSpec:
@@ -180,8 +198,8 @@ class CompiledModel:
     # ------------------------------------------------------------------
     def _psis(self, thetas, psis):
         if psis is None:
-            psis = torch.as_tensor(self.psi0, dtype=thetas.dtype,
-                                   device=thetas.device)
+            psis = device_constant("psi0", lambda: self.psi0, thetas.dtype,
+                                   thetas.device, self._consts)
         return psis.to(thetas).expand(thetas.shape[0], -1)
 
     def _substitute(self, thetas, psis):
@@ -281,24 +299,116 @@ class CompiledModel:
     # ------------------------------------------------------------------
     def isgood(self, thetas, psis=None):
         """Lane-batched prior (CascadiaOcean.isgood, models.py:571-677):
-        (N,) bool."""
+        (N,) bool.
+
+        CUDA thetas replay the CUDA graph of their batch shape
+        (:meth:`_isgood_graph`); CPU thetas, and a shape whose capture
+        failed, run the ops of :meth:`_isgood_plain` one by one.  Both
+        give the same bits."""
+        if thetas.is_cuda:
+            ok = self._isgood_graph(thetas, psis)
+            if ok is not None:
+                return ok
+        profiling.count("prior.plain_calls")
+        return self._isgood_plain(thetas, psis)
+
+    def _isgood_graph(self, thetas, psis):
+        """:meth:`_isgood_plain` as the CUDA graph of the call's shapes,
+        dtypes and device: the inputs are copied into the graph's
+        buffers, the graph replays, and a copy of its mask comes back, so
+        no caller holds graph memory.  A shape's first call warms the ops
+        on a side stream and captures them (the ``torch.cuda.graphs``
+        recipe).  None where the shape cannot be captured: a layer whose
+        lane mode reads the device, or copies from the host."""
+        key = tuple(None if x is None else (x.shape, x.dtype, x.device)
+                    for x in (thetas, psis))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(thetas, psis)
+        self._graphs.move_to_end(key)
+        while len(self._graphs) > _GRAPHS_KEPT:
+            self._graphs.popitem(last=False)
+        entry = self._graphs[key]
+        if entry is None:
+            return None
+        graph, th, ps, ok = entry
+        th.copy_(thetas)
+        if ps is not None:
+            ps.copy_(psis)
+        graph.replay()
+        profiling.count("prior.graph_replays")
+        return ok.clone()
+
+    def _capture(self, thetas, psis):
+        """(graph, thetas buffer, psis buffer or None, mask) of
+        :meth:`_isgood_plain` at these inputs' shapes, or None where its
+        ops cannot be captured.  The warm-up runs them twice, the second
+        time with CUDA's synchronizing calls made errors, so that a host
+        read of a device value or a copy from the host shows before any
+        capture begins: a capture that fails part way can leave the
+        caching allocator still routing into its pool."""
+        dev = thetas.device
+        th = thetas.clone()
+        ps = None if psis is None else psis.clone()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(stream)
+            mode = torch.cuda.get_sync_debug_mode()
+            try:
+                with torch.cuda.stream(side):
+                    self._isgood_plain(th, ps)        # builds the tables
+                    with warnings.catch_warnings():   # "a prototype"
+                        warnings.simplefilter("ignore", UserWarning)
+                        torch.cuda.set_sync_debug_mode("error")
+                    self._isgood_plain(th, ps)
+            except RuntimeError:
+                return None
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+                stream.wait_stream(side)
+            if dev not in self._pools:
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self._pools[dev],
+                                      capture_error_mode="thread_local"):
+                    ok = self._isgood_plain(th, ps)
+            except RuntimeError:
+                # a failed capture leaves its stream current
+                torch.cuda.set_stream(stream)
+                return None
+        profiling.count("prior.graph_captures")
+        return graph, th, ps, ok
+
+    def _prior_tables(self, dev):
+        """isgood's node masks and index arrays on ``dev``."""
+        n = self._n_nodes_main
+        g = self.grp_nodes[:n]
+        make = lambda key, a: device_constant(  # noqa: E731
+            key, lambda: a, None, dev, self._consts)
+        return (make("sediment", g == "sediment"),
+                make("crust", g == "crust"), make("mantle", g == "mantle"),
+                make("grp", self._grp_ids_main),
+                make("starts", self._node_starts_main),
+                make("ends", self._node_ends_main),
+                make("layer_of_node", self._layer_of_node_main))
+
+    def _isgood_plain(self, thetas, psis=None):
+        """The prior as torch ops.  They read no device value on the
+        host and copy nothing from it once its tables are on the device,
+        so a CUDA graph can capture them."""
         n = self._n_nodes_main
         z, vs, *_ = self.build_grids(thetas, psis, vs_only=True)
         z, vs = z[:, :n], vs[:, :n]
         dev = z.device
-        mask = lambda g: torch.as_tensor(  # noqa: E731
-            self.grp_nodes[:n] == g, device=dev)
-        sed, crust, mantle = mask("sediment"), mask("crust"), mask("mantle")
-        grp = torch.as_tensor(self._grp_ids_main, device=dev)
+        sed, crust, mantle, grp, starts, ends, layer_of_node = \
+            self._prior_tables(dev)
 
         # the host path checks the compacted grid (layers with current
         # H < 0.01 removed, models.py:80): nodes of dropped layers take
         # part in no prior
-        ends = torch.as_tensor(self._node_ends_main, device=dev)
-        starts = torch.as_tensor(self._node_starts_main, device=dev)
         h_layer = z[:, ends] - z[:, starts]
-        keep = (h_layer > 0.01)[:, torch.as_tensor(self._layer_of_node_main,
-                                                   device=dev)]
+        keep = (h_layer > 0.01)[:, layer_of_node]
 
         ok = torch.where(sed & keep, vs >= 0.2, True).all(dim=1)
         ok &= P.group_jumps_positive(vs, grp, keep)
@@ -311,9 +421,8 @@ class CompiledModel:
         if model_type in ("CascadiaPrism", "CascadiaContinent"):
             ok &= (vs < 4.9).all(dim=1)
         if "Ocean" in model_type:
-            profiling.count("host_syncs")    # int(mantle.sum()) below
             meanM = (torch.where(mantle, vs, 0.0).sum(dim=1)
-                     / max(int(mantle.sum()), 1))
+                     / self._n_mantle)
             ok &= P.local_extrema_oscillation_lanes(vs, mantle, 0.1 * meanM)
             ok &= P.no_local_max(vs, mantle)
             # slope prior + CWT oscillation on the mantle sub-grid

@@ -112,7 +112,10 @@ def _adjacent_flagged(vals, flag):
 def _adjacent_flagged_gap_ok(vals, flag, limit):
     """No adjacent flagged pair differs by more than ``limit``."""
     pair, nv = _adjacent_flagged(vals, flag)
-    limit = torch.as_tensor(limit, dtype=vals.dtype, device=vals.device)
+    # a number becomes a fill on the device, not a copy from the host
+    limit = (torch.as_tensor(limit, dtype=vals.dtype, device=vals.device)
+             if torch.is_tensor(limit) else
+             torch.full((), limit, dtype=vals.dtype, device=vals.device))
     if limit.dim() == 1:
         limit = limit[:, None]
     return ~(pair & ((nv - vals).abs() > limit)).any(dim=-1)

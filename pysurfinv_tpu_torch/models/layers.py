@@ -29,7 +29,7 @@ import torch
 
 from pysurfinv_tpu_torch.models.bspline import bspline_basis
 from pysurfinv_tpu_torch.models.brownian import BrownianVar, BrownianVarMC
-from pysurfinv_tpu_torch.utils import _dictIterModifier
+from pysurfinv_tpu_torch.utils import _dictIterModifier, device_constant
 
 _F64 = torch.float64
 
@@ -57,8 +57,16 @@ def _col(v, ref):
 
 def _lin01(n, ref):
     """linspace(0, 1, n) rounded as numpy (and jnp) round it, (1, n)."""
-    return torch.as_tensor(np.linspace(0.0, 1.0, n), dtype=ref.dtype,
-                           device=ref.device)[None]
+    return device_constant(("linspace01", n), lambda: np.linspace(0.0, 1.0, n),
+                           ref.dtype, ref.device)[None]
+
+
+def _basis_lanes(n_z, n_basis, deg, ref):
+    """The (n_basis, n_z) B-spline basis in ``ref``'s dtype, on its
+    device."""
+    return device_constant(("bspline", n_z, n_basis, deg),
+                           lambda: bspline_basis(n_z, n_basis, deg),
+                           ref.dtype, ref.device)
 
 
 def _lane_fill(x, v):
@@ -67,10 +75,10 @@ def _lane_fill(x, v):
 
 def _spline_lanes(vals, basis, ref):
     """sum_i vals[i] * basis[i] per lane: (N, n_z) from coefficients
-    that are lane tensors or constants.  Written as elementwise
-    multiply-adds so a lane's grid does not depend on the batch it is
-    built in (a matrix product's kernel choice can depend on N)."""
-    basis = basis.to(ref)
+    that are lane tensors or constants and a :func:`_basis_lanes` basis.
+    Written as elementwise multiply-adds so a lane's grid does not depend
+    on the batch it is built in (a matrix product's kernel choice can
+    depend on N)."""
     acc = _col(vals[0], ref) * basis[0]
     for v, b in zip(vals[1:], basis[1:]):
         acc = acc + _col(v, ref) * b
@@ -274,8 +282,8 @@ class Crust(SeisLayerVs):
         ref = kwargs.get("lanes")
         gauss = self.parm.get("Gauss", False)
         if ref is not None:
-            vs = _spline_lanes(self.parm["Vs"], self._bspl(
-                z.shape[1], len(self.parm["Vs"])), ref)
+            vs = _spline_lanes(self.parm["Vs"], _basis_lanes(
+                z.shape[1], len(self.parm["Vs"]), None, ref), ref)
             if gauss is not False:
                 A, mu, sig = (_col(x, ref) for x in gauss)
                 vs = vs + A * torch.exp(-0.5 * ((z - mu) / sig) ** 2)
@@ -371,9 +379,9 @@ class OceanMantle(SeisLayerVs):
     def _calVs(self, z, **kwargs):
         ref = kwargs.get("lanes")
         if ref is not None:
-            return _spline_lanes(self.parm["Vs"], self._bspl(
+            return _spline_lanes(self.parm["Vs"], _basis_lanes(
                 z.shape[1], len(self.parm["Vs"]),
-                self.parm.get("deg", None)), ref)
+                self.parm.get("deg", None), ref), ref)
         coef = _vec([float(v) for v in self.parm["Vs"]])
         basis = self._bspl(len(z), len(self.parm["Vs"]),
                            self.parm.get("deg", None))
@@ -470,8 +478,9 @@ class OceanMantleHybrid(OceanMantle):
         """:meth:`_melt_onset` per lane: ``age`` (N, 1) -> (N,), on the
         JAX package's 200-node grid (numpy's linspace rounding)."""
         from pysurfinv_tpu_torch.models.thermal import HSCM, solidus
-        zdeps = torch.as_tensor(np.linspace(0.0, 200.0, 200), dtype=age.dtype,
-                                device=age.device)
+        zdeps = device_constant("melt_zdeps", lambda: np.linspace(0.0, 200.0,
+                                                                  200),
+                                age.dtype, age.device)
         therm = HSCM(age=age, zdeps=zdeps, Tp=Tp)
         hot = therm.T > 0.92 * solidus(therm.P, "Ruan2018")
         first = zdeps[torch.argmax(hot.to(torch.int8), dim=1)]
@@ -527,7 +536,7 @@ class OceanMantleHybrid(OceanMantle):
         else:
             raise ValueError(f"Invalid conversion model: {conv}")
         z_melt = self._melt_onset_lanes(age, Tp=Tp)[:, None] - crustH
-        basis = self._bspl(z.shape[1], len(self.parm["Vs"]) + 1)
+        basis = _basis_lanes(z.shape[1], len(self.parm["Vs"]) + 1, None, ref)
         vs_pert = _spline_lanes([0.0] + list(self.parm["Vs"]), basis,
                                 ref) + seis.vs
         xH = (z_melt + crustH) * 1.7 - crustH

@@ -26,6 +26,8 @@ import math
 import numpy as np
 import torch
 
+from pysurfinv_tpu_torch.utils import device_constant
+
 C2K = 273.15
 SEC_PER_YEAR = 365 * 24 * 3600.0
 
@@ -163,7 +165,7 @@ _RITZ_WS = np.array([0.75, 0.21, 0.035, 0.0, 0.005])  # mineral fractions
 def ritzwoller_vs(T, P_gpa, X=0.1, ws=None, rho_type="raw", ther_rho=None):
     """Vs (km/s) from T (K) and P (GPa) via VRH averaging."""
     ws = _RITZ_WS if ws is None else np.asarray(ws)
-    p = torch.as_tensor(_RITZ, dtype=T.dtype, device=T.device)
+    p = device_constant("ritz", lambda: _RITZ, T.dtype, T.device)
     T0, P0 = C2K, 101.325e-6
     Tc = T[..., None]
     Pc = P_gpa[..., None]
@@ -176,7 +178,9 @@ def ritzwoller_vs(T, P_gpa, X=0.1, ws=None, rho_type="raw", ther_rho=None):
         rho0X = p[:, 0] + X * p[:, 1]
     rho = rho0X * (1 - alpha * (Tc - T0) + (Pc - P0) / K)
 
-    w = torch.as_tensor(ws, dtype=T.dtype, device=T.device)
+    w = (device_constant("ritz_ws", lambda: _RITZ_WS, T.dtype, T.device)
+         if ws is _RITZ_WS else torch.as_tensor(ws, dtype=T.dtype,
+                                                device=T.device))
     rho_vrh = torch.sum(w * rho, dim=-1)
     if rho_type == "from_thermal":
         rho_vrh = ther_rho

@@ -1,6 +1,6 @@
 """Shared utilities: recursive dict transforms, npz writing (whole
-arrays, or chain rows deflated lane by lane while the sampler runs) and
-profile plotting.
+arrays, or chain rows deflated lane by lane while the sampler runs),
+the lane paths' cached device constants and profile plotting.
 
 Capability spec from the reference pySurfInv's ``utils.py:9-53``.  matplotlib is
 imported only inside the plotting helpers.
@@ -11,8 +11,11 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from pysurfinv_tpu_torch import profiling
+
+_CONSTANTS: dict = {}
 
 
 def savez_fast(path, compresslevel=1, **arrays):
@@ -198,6 +201,20 @@ def deflate_bytes(data, level=1):
     import zlib
     obj = zlib.compressobj(level, zlib.DEFLATED, -15)
     return zlib.crc32(data), [obj.compress(data) + obj.flush()]
+
+
+def device_constant(key, make, dtype, device, cache=_CONSTANTS):
+    """The fixed table ``make()`` (numpy) as a tensor of ``dtype`` on
+    ``device``, built at the first call for (key, dtype, device) and
+    kept in ``cache`` (the module's own, or an owner's for tables of one
+    object) for every later one: a lane path's constants, so that a call
+    copies nothing from the host (a CUDA graph capture refuses such a
+    copy).  Callers never write into the result."""
+    k = (key, dtype, torch.device(device))
+    t = cache.get(k)
+    if t is None:
+        t = cache[k] = torch.as_tensor(make(), dtype=dtype, device=device)
+    return t
 
 
 def _dictIterModifier(d, checker, modifier):

@@ -10,6 +10,9 @@
   the lane mode of ``PureLayer`` / ``PureGrid`` against the JAX layers
   under ``jax.vmap``, float64, rtol 1e-12 (the port copies the profiles;
   nothing is computed but differences and midpoints).
+* The lane-batched prior (``CompiledModel.isgood``) against the JAX
+  package's compiled prior on a batch where every constraint rejects
+  lanes and thin sediment layers drop on some.
 * ``import pysurfinv_tpu_torch`` loads no JAX module.
 """
 
@@ -222,6 +225,28 @@ def test_pure_layers_lane_mode_match_jax_vmap():
                                    atol=0)
     # host mode is unchanged: (n,) profiles
     assert tl.PureGrid(grid_parm(vs[0])).seisPropGrids()[1].shape == (n,)
+
+
+def test_cpu_prior_is_the_jax_packages():
+    """The Cascadia test batch of ``test_torch_prior_graph.py``, thin-layer
+    lanes included, against the JAX package's compiled prior."""
+    import jax
+    import jax.numpy as jnp
+    from test_compiled_mcmc import LOCAL, PERIODS, SETTING, UNCERS, VELS
+    from test_torch_prior_graph import _batch, _models
+
+    from pysurfinv_tpu.inversion.compiled import CompiledModel
+    from pysurfinv_tpu.inversion.point import PointCascadia
+
+    cm, mods = _models("cascadia")
+    jcm = CompiledModel(PointCascadia(SETTING, LOCAL, periods=PERIODS,
+                                      vels=VELS, uncers=UNCERS).initMod)
+    th, ps = _batch(cm, mods, 512, seed=2)
+    want = np.asarray(jax.jit(jax.vmap(jcm.isgood))(
+        jnp.asarray(th.numpy()), jnp.asarray(ps.numpy())))
+    got = cm.isgood(th, ps).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < len(got)
 
 
 def test_profiling_helpers(tmp_path):

@@ -11,6 +11,9 @@ the CPU, at tiny sizes.
 * ``draw.plain_rounds`` counts the ``pysurfinv.draw`` spans of a CPU
   segment; on the card (a ``cuda``-marked test) ``draw.kernel_rounds``
   and the round kernel's launches count them.
+* ``prior.plain_calls`` counts the ``pysurfinv.prior`` spans of a CPU
+  segment; on the card ``prior.graph_captures`` counts one capture a
+  batch shape and ``prior.graph_replays`` every prior call.
 * The tracks are bitwise the same with tracing on and off.
 * ``invert_grid(stats=)`` returns the counters of the call.
 """
@@ -30,6 +33,7 @@ from pysurfinv_tpu_torch.convert import (model_batch_from_numpy,
 from pysurfinv_tpu_torch.inversion import random as R
 from pysurfinv_tpu_torch.inversion.compiled import (BrownianSpec,
                                                     CompiledModel)
+from pysurfinv_tpu_torch.inversion import mcmc
 from pysurfinv_tpu_torch.inversion.mcmc import (ChainConfig,
                                                 make_segmented_sampler)
 from pysurfinv_tpu_torch.inversion.point import PointCascadia
@@ -167,24 +171,30 @@ def test_spans_nest_in_the_chrome_trace(priori, tmp_path):
     assert counted["propose.candidates"] > 0
 
 
-def test_candidates_are_the_rows_the_prior_judged(priori):
+def test_candidates_are_the_rows_the_prior_judged(priori, monkeypatch):
     cm, lanes = priori
-    rows = []
+    rows, unfound = [], []
 
     def spy(t, ctx):
         rows.append(t.shape[0])
         return cm.isgood(t, ctx[0])
 
+    def count_unfound(found, _n_unfound=mcmc._n_unfound):
+        unfound.append(1)
+        return _n_unfound(found)
+
+    monkeypatch.setattr(mcmc, "_n_unfound", count_unfound)
     segment = _segment(cm, lanes, isgood=spy)
     rows.clear()
+    unfound.clear()
     profiling.reset_counters()
     with profiling.counting():
         segment()
     got = profiling.counters()
     assert got["propose.candidates"] == sum(rows) > 0
-    # one count of unfound lanes a stage's round plus its final check,
-    # one mantle count a prior call
-    assert got["host_syncs"] >= 2 * len(rows)
+    # one count of unfound lanes a stage's round plus its final check;
+    # the prior reads nothing on the host
+    assert got["host_syncs"] == len(unfound) > len(rows)
     profiling.reset_counters()
     assert _registry() == {}
 
@@ -222,6 +232,55 @@ def test_kernel_rounds_count_the_draw_spans(priori, tmp_path):
     n_draw, got, launched = _draw_rounds(cm, lanes, tmp_path)
     assert got["draw.kernel_rounds"] == n_draw == launched > 0
     assert "draw.plain_rounds" not in got
+
+
+def _prior_calls(cm, lanes, tmp_path):
+    """A traced segment's ``pysurfinv.prior`` spans, its counters and the
+    batch shapes its prior saw first there (not at the chains' start)."""
+    shapes = set()
+
+    def isgood(t, ctx):
+        shapes.add(tuple(t.shape))
+        return cm.isgood(t, ctx[0])
+
+    segment = _segment(cm, lanes, isgood)
+    seen = set(shapes)
+    profiling.reset_counters()
+    with profiling.trace(str(tmp_path / "tr")):
+        segment()
+        got = profiling.counters()
+    spans, _ = _spans(tmp_path / "tr" / "trace.json")
+    profiling.reset_counters()
+    return (sum(e["name"] == "pysurfinv.prior" for e in spans), got,
+            shapes - seen)
+
+
+def test_prior_counts_plain_calls_on_the_cpu(priori, tmp_path):
+    n_prior, got, _ = _prior_calls(*priori, tmp_path)
+    assert got["prior.plain_calls"] == n_prior > 0
+    assert "prior.graph_replays" not in got
+    assert "prior.graph_captures" not in got
+
+
+@pytest.mark.cuda
+def test_prior_graph_counters_on_the_card(priori, tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    cm, lanes = priori
+    keys, spec_b, ctx_b, theta0, use_init = lanes
+    dev = lambda x: x.to("cuda")  # noqa: E731
+    lanes = (dev(keys), type(spec_b)(*map(dev, spec_b)),
+             tuple(map(dev, ctx_b)), dev(theta0), dev(use_init))
+    cm = CompiledModel(cm.model)          # no graph yet
+    n_prior, got, new_shapes = _prior_calls(cm, lanes, tmp_path)
+    assert got["prior.graph_captures"] == len(new_shapes) > 0
+    assert got["prior.graph_replays"] == n_prior
+    assert "prior.plain_calls" not in got
+    # the same shapes again: replays only
+    n_prior, got, _ = _prior_calls(cm, lanes, tmp_path)
+    assert got["prior.graph_replays"] == n_prior > 0
+    assert "prior.graph_captures" not in got
+    assert "prior.plain_calls" not in got
 
 
 def test_tracks_are_the_same_with_tracing_on_and_off(priori, tmp_path):
